@@ -3,17 +3,29 @@
 
     python3 chip_smoke.py [--parts N]
 
-Builds the CUDA kernels from frostdb_tpu_torch/csrc/ and holds each kernel
-against its plain PyTorch version on the card (edge cases, exactly). Then
-serves the engine's hot query shapes through LocalEngine on a 32 x 2^21-row
-table (the shape of bench.py's engine_bench; --parts cuts the 32), checks
-every result against a numpy reference and against the port's generic
-operator DAG, checks float sums on both paths, times the queries and
-profiles one of each. Last, each kernel is checked and timed on the inputs
-the main path gave it, beside its plain version and a one-call PyTorch
-yardstick. Prints a ``kernels`` JSON line and, last, an ``ok`` JSON line.
-Exits non-zero, printing no result, without a CUDA device or without the
-package beside it.
+Builds the CUDA kernels from frostdb_tpu_torch/csrc/ (one nvcc per source,
+all started together) and holds each kernel against its plain PyTorch
+version on the card (edge cases, exactly). Then drives three paths, each
+with the launch counts set to 0 just before it and read just after:
+
+1. the aggregate shapes (slice 1): the engine's hot filter + group-by
+   query shapes through LocalEngine on a 32 x 2^21-row table (the shape of
+   bench.py's engine_bench; --parts cuts the 32), every result checked
+   against a numpy reference and against the port's generic operator DAG,
+   float sums checked on both paths, the queries timed and profiled;
+2. the scan and distinct shapes (slice 2) on the same table: filter ->
+   project [-> limit] on the compiled_scan tier, the Parca Values/Types
+   distincts on compiled_distinct and Labels on schema_meta, each checked
+   against the generic DAG (rows and batch boundaries) and numpy, timed and
+   profiled;
+3. the kernel bench (bench.py's data): 8 datasets of 2^25 rows through the
+   fused `ts >= literal` sum/count kernel, checked exactly against numpy.
+
+Last, each kernel is checked and timed on the inputs its path gave it,
+beside its plain version and a one-call PyTorch yardstick. Prints a
+``kernels`` JSON line and, last, an ``ok`` JSON line. Exits non-zero,
+printing no result, without a CUDA device or without the package beside
+it.
 """
 
 from __future__ import annotations
@@ -36,13 +48,23 @@ ROWS_PER_PART = 1 << 21  # bench.py engine_bench
 SEED = 0  # bench.py engine_bench's rng(0)
 QUERY_REPS = 10
 
-# name -> (Pallas entry it replaces, int ops per row)
+BENCH_ROWS = 1 << 25  # bench.py's kernel bench on the TPU: 2^25 rows
+BENCH_DATASETS = 8
+BENCH_LITERAL = 50
+
+# name -> (Pallas entry it replaces, int ops per row, CUDA source)
 KERNELS = {
-    "fused_band_group_sum_count": ("frostdb_tpu/ops/pallas_agg.py:264", 6),
-    "group_sum_count": ("frostdb_tpu/ops/pallas_agg.py:156", 5),
-    "group_min_max": ("frostdb_tpu/ops/pallas_agg.py:435", 5),
-    "fused_cmp_group_sum_count": ("frostdb_tpu/ops/pallas_agg.py:319", 6),
+    "fused_band_group_sum_count": ("frostdb_tpu/ops/pallas_agg.py:264", 6, "agg.cu"),
+    "group_sum_count": ("frostdb_tpu/ops/pallas_agg.py:156", 5, "agg.cu"),
+    "group_min_max": ("frostdb_tpu/ops/pallas_agg.py:435", 5, "agg.cu"),
+    "fused_cmp_group_sum_count": ("frostdb_tpu/ops/pallas_agg.py:319", 6, "agg.cu"),
+    "filter_group_sum_count": ("frostdb_tpu/ops/pallas_agg.py:216", 5, "agg.cu"),
+    "block_compact": ("frostdb_tpu/ops/pallas_agg.py:570", 3, "compact.cu"),
 }
+SLICE1_KERNELS = (
+    "fused_band_group_sum_count", "group_sum_count", "group_min_max",
+    "fused_cmp_group_sum_count",
+)
 
 # Position of num_codes among each wrapper's arguments.
 NUM_CODES_ARG = {
@@ -50,6 +72,7 @@ NUM_CODES_ARG = {
     "group_sum_count": 3,
     "group_min_max": 3,
     "fused_cmp_group_sum_count": 5,
+    "filter_group_sum_count": 4,
 }
 
 
@@ -83,8 +106,9 @@ def max_abs_err(out, ref) -> int:
         torch.cuda.synchronize()
         if o.shape != r.shape or o.dtype != r.dtype:
             raise AssertionError(f"shape/dtype {o.shape} {o.dtype} vs {r.shape} {r.dtype}")
-        d = (o.to(torch.int64) - r.to(torch.int64)).abs().max()
-        err = max(err, int(d.item()) if o.numel() else 0)
+        if o.numel():
+            d = (o.to(torch.int64) - r.to(torch.int64)).abs().max()
+            err = max(err, int(d.item()))
     return err
 
 
@@ -120,10 +144,65 @@ def kernel_calls(x, num_codes, num_digits, lit):
     }
 
 
+def new_kernel_edge_cases(AK, dev, errs) -> None:
+    """The fused ``ts >= literal`` sum/count (K5) and block compaction (K6)
+    against their plain versions, exactly: empty input, no row and every
+    row selected, one code and 2048 codes, values that exercise the digit
+    mask; for K6 capacities 16, 128 and 1024, blocks with exactly capb
+    (and capb +- 1) selected rows, and a partial last block."""
+    import torch
+
+    k5 = [  # (n, K, vmax, literal, num_digits)
+        (0, 64, 1 << 14, 50, 2),  # empty
+        (100_003, 64, 1 << 14, 1000, 2),  # no row selected
+        (100_003, 64, 1 << 14, -5, 2),  # every row selected
+        ((1 << 20) + 12_345, 2048, 1 << 14, 500, 2),
+        (1 << 18, 1, 1 << 14, 500, 3),
+        (1 << 18, 64, 2**31 - 1, 500, 2),  # digit mask: 14 of 31 bits kept
+        (1 << 18, 64, 2**31 - 1, 100, 5),
+    ]
+    for i, (n, k, vmax, lit, nd) in enumerate(k5):
+        codes, values, ts, _sel, _b = kernel_inputs(n, k, vmax, 0.5, 300 + i, dev)
+        args = (codes, values, ts, lit, k, nd)
+        out = AK.filter_group_sum_count(*args)
+        torch.cuda.synchronize()
+        e = max_abs_err(out, AK.filter_group_sum_count_plain(*args))
+        errs["filter_group_sum_count"] = max(errs["filter_group_sum_count"], e)
+        if e:
+            raise AssertionError(f"filter_group_sum_count n={n} K={k}: max abs err {e}")
+
+    rb = AK.BLOCK_ROWS
+    g = torch.Generator(device=dev).manual_seed(400)
+    n = 37 * rb + 4321  # partial last block
+    k6 = [(torch.zeros(0, dtype=torch.int32, device=dev), 16)]  # empty
+    for p in (0.0, 1.0, 0.003, 0.05, 0.5):
+        sel = (torch.rand(n, generator=g, device=dev) < p).to(torch.int32)
+        k6 += [(sel, capb) for capb in (16, 128, 1024)]
+    for capb in (16, 128, 1024):
+        sel = torch.zeros(4 * rb, dtype=torch.int32, device=dev)
+        for b, k in enumerate((capb, capb + 1, capb - 1, rb)):
+            pos = torch.randperm(rb, generator=g, device=dev)[:k]
+            sel[b * rb + pos] = 1
+        k6.append((sel, capb))
+    for sel, capb in k6:
+        out = AK.block_compact(sel, capb)
+        torch.cuda.synchronize()
+        ref = AK.block_compact_plain(sel, capb)
+        e = max_abs_err(out, ref)
+        errs["block_compact"] = max(errs["block_compact"], e)
+        if e:
+            raise AssertionError(f"block_compact n={sel.numel()} capb={capb}: max abs err {e}")
+    log(
+        f"kernel edge cases: {len(k5)} input sets of filter_group_sum_count and "
+        f"{len(k6)} of block_compact exact"
+    )
+
+
 def kernel_phase(AK, dev, main_rows):
     import torch
 
     errs = {k: 0 for k in KERNELS}
+    new_kernel_edge_cases(AK, dev, errs)
     # Edge cases: code spaces, every row filtered out, a ragged length,
     # values near 2^31, 3-clause bands with a dict-style equality.
     cases = [
@@ -154,7 +233,7 @@ def kernel_phase(AK, dev, main_rows):
         errs["fused_band_group_sum_count"],
         max_abs_err(out, AK.fused_band_group_sum_count_plain(*band3)),
     )
-    log(f"kernel edge cases: {len(cases)} input sets x {len(KERNELS)} kernels exact")
+    log(f"kernel edge cases: {len(cases)} input sets x {len(SLICE1_KERNELS)} kernels exact")
 
     # Uniform random codes at the main path's row count (the main path's
     # own inputs are timed by main_path_kernels).
@@ -174,6 +253,10 @@ def _selection(name, args):
 
     cmp = {"<": torch.lt, "<=": torch.le, ">": torch.gt, ">=": torch.ge,
            "==": torch.eq, "!=": torch.ne}
+    if name == "block_compact":
+        return args[0] != 0
+    if name == "filter_group_sum_count":
+        return args[2] >= int(args[3])
     if name == "group_sum_count":
         return args[2] != 0
     if name == "group_min_max":
@@ -213,12 +296,15 @@ def capture_kernel_args(AK):
 
 
 def main_path_kernels(AK, captured, errs, launches, live_rows):
-    """Each kernel against its plain version on the inputs the main path
-    gave it, timed beside the plain version and a one-call yardstick. The
-    bound (``bound_ms``) counts the predicate planes in full, padding
-    included, and the code and value of each selected row (the kernel reads
-    no other), plus the outputs; ``bound_live_ms`` counts the planes over
-    the table's ``live_rows`` only, the bound once parts are not padded."""
+    """Each kernel against its plain version on the inputs its path gave
+    it, timed beside the plain version and a one-call yardstick. The bound
+    (``bound_ms``) counts what the kernel must read and write: for the
+    sum/count and min/max kernels the predicate planes in full, padding
+    included, and the code and value of each selected row (the kernel
+    reads no other), plus the outputs; for block compaction the selection
+    plane and the ``n_blocks x (1 + capb)`` output. ``bound_live_ms``
+    counts the planes over ``live_rows[name]`` rows only, the bound once
+    parts are not padded."""
     import torch
 
     rows = []
@@ -230,35 +316,51 @@ def main_path_kernels(AK, captured, errs, launches, live_rows):
         e = max_abs_err(out, plain(*args))
         if e:
             raise AssertionError(f"{name} on the main path's inputs: max abs err {e}")
-        codes, values = args[0], args[1]
         live = _selection(name, args)
-        n, n_sel = codes.numel(), int(live.sum())
-        k = args[NUM_CODES_ARG[name]]
-        # Unselected rows may hold any code; the yardstick sends them to 0.
-        codes64 = torch.where(live, codes, 0).long()
-        if name == "group_min_max":
-            vmin = torch.where(live, values, 2**31 - 1)
-            vmax = torch.where(live, values, -(2**31))
-
-            def library():
-                # No single PyTorch call gives both: one scatter_reduce_ each.
-                torch.full((k,), 2**31 - 1, dtype=torch.int32, device=codes.device).scatter_reduce_(0, codes64, vmin, "amin")
-                torch.full((k,), -(2**31), dtype=torch.int32, device=codes.device).scatter_reduce_(0, codes64, vmax, "amax")
-        else:
-            masked = torch.where(live, values.long(), 0)
-
-            def library():
-                torch.zeros(k, dtype=torch.int64, device=codes.device).index_add_(0, codes64, masked)
-
-        pred_bytes = sum(t.numel() * t.element_size() for t in _tensors(args[2:]))
-        sel_bytes = n_sel * (codes.element_size() + values.element_size())
+        n_sel = int(live.sum())
         out_bytes = sum(o.numel() * o.element_size() for o in out)
-        bytes_ms = (pred_bytes + sel_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-        ops_ms = n * KERNELS[name][1] / INT32_OPS_PER_S * 1e3
-        live_bytes = pred_bytes * live_rows / n + sel_bytes + out_bytes
+        if name == "block_compact":
+            sel, capb = args
+            n = sel.numel()
+            view = sel.reshape(-1, AK.BLOCK_ROWS)
+
+            def library():
+                torch.nonzero(view)
+                view.sum(dim=1)
+
+            plane_bytes, row_bytes = n * sel.element_size(), 0
+            what = f"capb={capb}"
+        else:
+            codes, values = args[0], args[1]
+            n = codes.numel()
+            k = args[NUM_CODES_ARG[name]]
+            # Unselected rows may hold any code; the yardstick sends them to 0.
+            codes64 = torch.where(live, codes, 0).long()
+            if name == "group_min_max":
+                vmin = torch.where(live, values, 2**31 - 1)
+                vmax = torch.where(live, values, -(2**31))
+
+                def library():
+                    # No single PyTorch call gives both: one scatter_reduce_ each.
+                    torch.full((k,), 2**31 - 1, dtype=torch.int32, device=codes.device).scatter_reduce_(0, codes64, vmin, "amin")
+                    torch.full((k,), -(2**31), dtype=torch.int32, device=codes.device).scatter_reduce_(0, codes64, vmax, "amax")
+            else:
+                masked = torch.where(live, values.long(), 0)
+
+                def library():
+                    torch.zeros(k, dtype=torch.int64, device=codes.device).index_add_(0, codes64, masked)
+
+            plane_bytes = sum(t.numel() * t.element_size() for t in _tensors(args[2:]))
+            row_bytes = n_sel * (codes.element_size() + values.element_size())
+            what = f"K={k}"
+        live_n = live_rows[name]
+        ops_per_row = KERNELS[name][1]
+        bytes_ms = (plane_bytes + row_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+        ops_ms = n * ops_per_row / INT32_OPS_PER_S * 1e3
+        live_bytes = plane_bytes * live_n / n + row_bytes + out_bytes
         live_ms = max(
             live_bytes / HBM_BYTES_PER_S * 1e3,
-            live_rows * KERNELS[name][1] / INT32_OPS_PER_S * 1e3,
+            live_n * ops_per_row / INT32_OPS_PER_S * 1e3,
         )
         ms = cuda_ms(lambda: wrapper(*args))
         plain_ms = cuda_ms(lambda: plain(*args))
@@ -266,7 +368,7 @@ def main_path_kernels(AK, captured, errs, launches, live_rows):
         rows.append({
             "name": name,
             "route": "cuda",
-            "source": "frostdb_tpu_torch/csrc/agg.cu",
+            "source": "frostdb_tpu_torch/csrc/" + KERNELS[name][2],
             "replaces": KERNELS[name][0],
             "launches": launches[name],
             "max_abs_err": max(errs[name], e),
@@ -280,8 +382,8 @@ def main_path_kernels(AK, captured, errs, launches, live_rows):
         log(
             f"kernel {name} on {shape}'s inputs: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
             f"library {lib_ms:.4f} ms, bound {rows[-1]['bound_ms']:.4f} ms on "
-            f"{n} padded rows, {live_ms:.4f} ms on {live_rows} live rows) "
-            f"with {n_sel} selected, K={k}"
+            f"{n} padded rows, {live_ms:.4f} ms on {live_n} live rows) "
+            f"with {n_sel} selected, {what}"
         )
     return rows
 
@@ -468,9 +570,9 @@ def engine_phase(AK, args, device="cuda"):
             results.append((name, out))
     launches = dict(AK.LAUNCHES)
     captured = {k: (first_shape[k], seen[k]) for k in KERNELS if k in seen}
-    log(f"main path launches: {json.dumps(launches)}")
-    for k, n in launches.items():
-        if n == 0:
+    log(f"main path launches (aggregate shapes): {json.dumps(launches)}")
+    for k in SLICE1_KERNELS:
+        if launches[k] == 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
 
     for name, out in results:
@@ -509,8 +611,12 @@ def engine_phase(AK, args, device="cuda"):
             f"engine {name}: median {statistics.median(w):.3f} ms, "
             f"min {min(w):.3f} ms over {len(w)} queries of {total} rows"
         )
-    device_breakdown(engine, E, walls)
-    return launches, captured
+    device_breakdown(
+        [(name, lambda f=filt, a=aggs: run_query(engine, "t", f, a, E))
+         for name, filt, aggs, _k in shapes(E, 90)],
+        walls,
+    )
+    return launches, captured, (db, engine, generic, data)
 
 
 def pairwise_sum(v) -> float:
@@ -594,17 +700,18 @@ def float_sums(db, engine, generic, E, lit: int = 40) -> None:
     )
 
 
-def device_breakdown(engine, E, walls) -> None:
-    """Per shape, one query under torch.profiler: the device's busy time
-    (kernels and copies), its share of the median wall time, and the
-    largest device operations."""
+def device_breakdown(runs, walls) -> None:
+    """Per query shape, one query under torch.profiler: the device's busy
+    time (kernels and copies), its share of the median wall time, the
+    device-to-host copies and the largest device operations. ``runs`` is a
+    list of (name, fn running one query)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for name, filt, aggs, _k in shapes(E, 90):
+    for name, fn in runs:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run_query(engine, "t", filt, aggs, E)
+            fn()
             torch.cuda.synchronize()
         ops = [
             e for e in prof.key_averages()
@@ -614,16 +721,403 @@ def device_breakdown(engine, E, walls) -> None:
             log(f"engine {name}: device time not measured (the profiler saw no device events)")
             continue
         busy = sum(e.self_device_time_total for e in ops) / 1e3
+        d2h = sum(e.self_device_time_total for e in ops if "DtoH" in e.key) / 1e3
         wall = statistics.median(walls[name])
         top = sorted(ops, key=lambda e: -e.self_device_time_total)[:4]
         log(
             f"engine {name}: device busy {busy:.3f} ms of a {wall:.3f} ms median "
-            f"query (idle share {1 - busy / wall:.3f}); largest: "
+            f"query (idle share {1 - busy / wall:.3f}); device-to-host copies "
+            f"{d2h:.3f} ms; largest: "
             + "; ".join(
                 f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
                 for e in top
             )
         )
+
+
+# ---------------------------------------------------------------------------
+# Scan and distinct phase (slice 2)
+
+
+def scan_shapes(E, i):
+    """The slice's query shapes for query number ``i`` (literals vary with
+    it): (name, fn(engine) -> query, serving tier, kernels)."""
+    ts, v = E.Col("timestamp"), E.Col("value")
+    label = f"g{(7 + i) % NUM_CODES}"
+    low = 5 + i % 3
+    return [
+        # bench_macro.py's filter_project (~0.5% selected there, 0.4% here)
+        ("scan_value_gt",
+         lambda e: e.scan_table("t").filter(v.gt(995 - i % 3)).project(
+             E.Col("example_type"), v),
+         "compiled_scan", {"block_compact"}),
+        ("scan_label_band_limit",
+         lambda e: e.scan_table("t").filter(
+             E.And(E.Col("labels.label1").eq(label), ts.gt_eq(500))).project(
+             E.Col("labels.label1"), ts, v).limit(E.Literal(1000)),
+         "compiled_scan", {"block_compact"}),
+        ("scan_or",
+         lambda e: e.scan_table("t").filter(
+             E.Or(ts.lt(low), ts.gt_eq(990 + low))).project(v),
+         "compiled_scan", {"block_compact"}),
+        # The same OR on a column the parts are not sorted by, so no block
+        # holds a long run of selected rows.
+        ("scan_or_value",
+         lambda e: e.scan_table("t").filter(
+             E.Or(v.lt(low), v.gt_eq(990 + low))).project(ts),
+         "compiled_scan", {"block_compact"}),
+        # bench_macro.py's Values, Types and Labels
+        ("distinct_values",
+         lambda e: e.scan_table("t").distinct(E.Col("labels.label1")),
+         "compiled_distinct", {"group_sum_count"}),
+        ("distinct_types",
+         lambda e: e.scan_table("t").distinct(
+             E.Col("example_type"), v.gt(500 + i)),
+         "compiled_distinct", {"group_sum_count"}),
+        ("schema_labels",
+         lambda e: e.scan_schema("t").distinct(E.Col("name")).filter(
+             E.Col("name").regex_match(r"^labels\..+$")),
+         "schema_meta", set()),
+    ]
+
+
+def run_shape(engine, make_q):
+    out = []
+    make_q(engine).execute(out.append)
+    return out
+
+
+def batch_columns(batches):
+    """Per batch, per column: (name, kind, values, validity), dictionary
+    codes decoded to their strings."""
+    out = []
+    for b in batches:
+        cols = []
+        for c in b.columns:
+            vals = np.asarray(c.values)
+            if c.dictionary is not None:
+                vals = np.asarray(c.dictionary.values, dtype=object)[vals]
+            cols.append((c.name, c.kind, vals, np.asarray(c.validity)))
+        out.append(cols)
+    return out
+
+
+def same_batches(a, b) -> bool:
+    """The same batches (boundaries), columns, kinds, validity and valid
+    values."""
+    a, b = batch_columns(a), batch_columns(b)
+    if len(a) != len(b):
+        return False
+    for ca, cb in zip(a, b):
+        if [x[:2] for x in ca] != [x[:2] for x in cb]:
+            return False
+        for (_n, _k, va, ma), (_n2, _k2, vb, mb) in zip(ca, cb):
+            if len(va) != len(vb) or not np.array_equal(ma, mb):
+                return False
+            if not np.array_equal(va[ma], vb[mb]):
+                return False
+    return True
+
+
+def column_of(batches, name):
+    cols = [c for b in batches for c in batch_columns([b])[0] if c[0] == name]
+    return np.concatenate([c[2] for c in cols]) if cols else np.zeros(0)
+
+
+def scan_reference_ok(name, i, out, flat) -> bool:
+    """The shape's rows against numpy over the generated arrays ``flat`` =
+    (codes, timestamps, values): as a multiset for the scans (the limited
+    scan's rows a sub-multiset of the matching rows, as many as the limit
+    allows), exactly for the distincts."""
+    codes, ts, val = flat
+    if name == "scan_value_gt":
+        ref = np.sort(val[val > 995 - i % 3])
+        return (np.array_equal(np.sort(column_of(out, "value").astype(np.int64)), ref)
+                and set(column_of(out, "example_type")) <= {"cpu"})
+    if name == "scan_or":
+        low = 5 + i % 3
+        ref = np.sort(val[(ts < low) | (ts >= 990 + low)])
+        return np.array_equal(np.sort(column_of(out, "value").astype(np.int64)), ref)
+    if name == "scan_or_value":
+        low = 5 + i % 3
+        ref = np.sort(ts[(val < low) | (val >= 990 + low)])
+        return np.array_equal(np.sort(column_of(out, "timestamp").astype(np.int64)), ref)
+    if name == "scan_label_band_limit":
+        k = (7 + i) % NUM_CODES
+        m = (codes == k) & (ts >= 500)
+        ref_keys, ref_n = np.unique(ts[m] * 1000 + val[m], return_counts=True)
+        got = column_of(out, "timestamp").astype(np.int64) * 1000 + column_of(out, "value").astype(np.int64)
+        keys, n = np.unique(got, return_counts=True)
+        pos = np.searchsorted(ref_keys, keys)
+        pos = np.minimum(pos, len(ref_keys) - 1)
+        return (len(got) == min(1000, int(m.sum()))
+                and np.array_equal(ref_keys[pos], keys)
+                and bool((n <= ref_n[pos]).all())
+                and set(column_of(out, "labels.label1")) == {f"g{k}"})
+    if name == "distinct_values":
+        got = list(column_of(out, "labels.label1"))
+        present = np.flatnonzero(np.bincount(codes, minlength=NUM_CODES))
+        return len(got) == len(set(got)) and sorted(got) == sorted(f"g{k}" for k in present)
+    if name == "distinct_types":
+        rows = list(zip(column_of(out, "example_type"), column_of(out, out[0].columns[1].name)))
+        above = int((val > 500 + i).sum())
+        ref = {("cpu", x) for x, n in ((True, above), (False, len(val) - above)) if n}
+        return len(rows) == len(ref) and {(a, bool(b)) for a, b in rows} == ref
+    return list(column_of(out, "name")) == ["labels.label1"]
+
+
+def scan_distinct_phase(AK, db, engine, generic, data, total):
+    """Slice 2's path on the engine table: each shape once with the launch
+    counts set to 0 before and read after (the inputs of each kernel's
+    first launch are kept), served by its tier, equal to the generic DAG
+    batch for batch and to numpy; then timed over QUERY_REPS queries with
+    varying literals and profiled once each."""
+    import torch
+
+    from frostdb_tpu_torch.query import expr as E
+
+    flat = tuple(np.concatenate([d[j] for d in data]) for j in range(3))
+    # Warm: uploads and planes, and every literal of the timed loop once,
+    # so each structure's cached compaction capacity has settled and the
+    # timed queries take one dispatch each.
+    for i in range(QUERY_REPS):
+        for _name, make_q, _tier, _k in scan_shapes(E, i):
+            run_shape(engine, make_q)
+    torch.cuda.synchronize()
+
+    AK.reset_launches()
+    results = []
+    first_shape: dict = {}
+    with capture_kernel_args(AK) as seen:
+        for name, make_q, tier, kernels in scan_shapes(E, 0):
+            before = dict(AK.LAUNCHES)
+            out = run_shape(engine, make_q)
+            moved = {k for k in AK.LAUNCHES if AK.LAUNCHES[k] > before[k]}
+            if engine.last_serving_path != tier:
+                raise AssertionError(f"{name}: served by {engine.last_serving_path}: {engine.last_fallback_reasons}")
+            if moved != kernels:
+                raise AssertionError(f"{name}: launched {moved}, expected {kernels}")
+            for k in moved:
+                first_shape.setdefault(k, name)
+            results.append((name, make_q, out))
+    launches = dict(AK.LAUNCHES)
+    captured = {k: (first_shape[k], seen[k]) for k in KERNELS if k in seen}
+    log(f"main path launches (scan and distinct shapes): {json.dumps(launches)}")
+    if launches["block_compact"] == 0:
+        raise AssertionError("block_compact was not launched on the scan path")
+
+    for name, make_q, out in results:
+        t0 = time.perf_counter()
+        slow = run_shape(generic, make_q)
+        slow_s = time.perf_counter() - t0
+        if generic.last_serving_path != "generic":
+            raise AssertionError(f"{name}: generic engine served by {generic.last_serving_path}")
+        if not same_batches(out, slow):
+            raise AssertionError(f"{name}: fast tier and generic DAG differ")
+        if not scan_reference_ok(name, 0, out, flat):
+            raise AssertionError(f"{name}: result differs from the numpy reference")
+        log(
+            f"{name}: {sum(b.num_rows for b in out)} rows in {len(out)} batches, "
+            f"== generic DAG (batches, rows, order; generic took {slow_s:.2f} s) and numpy"
+        )
+    # A scan whose partial blocks overflow the largest capacity takes the
+    # host re-filter for them by design: it is checked above and not timed
+    # (tests/test_torch_scan.py covers that path).
+    overflow = scan_layout(engine, E, total)
+    timed = {name for name, *_r in scan_shapes(E, 0) if not overflow.get(name)}
+    for name in sorted(set(overflow) - timed):
+        log(f"engine {name}: not timed, {overflow[name]} blocks fall to the host re-filter")
+
+    walls: dict = {}
+    dispatches: dict = {}
+    for i in range(QUERY_REPS):
+        for name, make_q, tier, _k in scan_shapes(E, i):
+            if name not in timed:
+                continue
+            before = AK.LAUNCHES["block_compact"]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = run_shape(engine, make_q)
+            walls.setdefault(name, []).append((time.perf_counter() - t1) * 1e3)
+            dispatches.setdefault(name, []).append(AK.LAUNCHES["block_compact"] - before)
+            if engine.last_serving_path != tier:
+                raise AssertionError(f"{name} #{i}: served by {engine.last_serving_path}")
+            if name.startswith("scan") and not scan_reference_ok(name, i, out, flat):
+                raise AssertionError(f"{name} #{i}: result differs from the numpy reference")
+    for name, w in walls.items():
+        log(
+            f"engine {name}: median {statistics.median(w):.3f} ms, min {min(w):.3f} ms "
+            f"over {len(w)} queries of {total} rows; block_compact dispatches per "
+            f"query {dispatches[name]}"
+        )
+        if name.startswith("scan") and set(dispatches[name]) != {1}:
+            raise AssertionError(f"{name}: a timed query took {dispatches[name]} dispatches")
+    device_breakdown(
+        [(name, lambda m=make_q: run_shape(engine, m))
+         for name, make_q, _t, _k in scan_shapes(E, 0) if name in timed],
+        walls,
+    )
+    scan_host_breakdown(engine, E, timed)
+    return launches, captured
+
+
+def scan_host_breakdown(engine, E, timed) -> None:
+    """Per timed scan shape, where a query's wall time goes (host clock,
+    median of QUERY_REPS queries): the device program (selection plane,
+    compaction and the blob's copy, which waits for the device), the
+    host's per-block loop that turns the blob into row positions, the
+    per-part ``take`` and projection, and the rest (planning, part
+    collection, tier dispatch)."""
+    from frostdb_tpu_torch.compiled_scan import CompiledScan
+
+    spans = ("_run_scan_program", "_selected_rows", "_materialize")
+    saved = {name: getattr(CompiledScan, name) for name in spans}
+    for shape, make_q, _tier, _k in scan_shapes(E, 0):
+        if not shape.startswith("scan") or shape not in timed:
+            continue
+        took: dict = {name: [] for name in spans}
+        took["query"] = []
+
+        def timer(name, fn):
+            def call(self, *a, **k):
+                t = time.perf_counter()
+                try:
+                    return fn(self, *a, **k)
+                finally:
+                    took[name].append((time.perf_counter() - t) * 1e3)
+
+            return call
+
+        for name, fn in saved.items():
+            setattr(CompiledScan, name, timer(name, fn))
+        try:
+            for _ in range(QUERY_REPS):
+                t = time.perf_counter()
+                run_shape(engine, make_q)
+                took["query"].append((time.perf_counter() - t) * 1e3)
+        finally:
+            for name, fn in saved.items():
+                setattr(CompiledScan, name, fn)
+        med = {k: statistics.median(v) for k, v in took.items()}
+        log(
+            f"engine {shape} host breakdown (median ms): query {med['query']:.3f} = "
+            f"device program and copy {med['_run_scan_program']:.3f} + per-block "
+            f"loop {med['_selected_rows'] - med['_run_scan_program']:.3f} + take and "
+            f"project {med['_materialize']:.3f} + rest "
+            f"{med['query'] - med['_selected_rows'] - med['_materialize']:.3f}"
+        )
+
+
+def scan_layout(engine, E, total) -> dict:
+    """Per scan shape, what its compaction saw: the capacity it settled on,
+    and blocks with a selected row, full, and past the capacity. Returns
+    {shape: blocks re-filtered on the host}."""
+    import frostdb_tpu_torch.compiled_scan as CS
+    from frostdb_tpu_torch.ops import agg_kernels as AK
+
+    overflow = {}
+    for name, make_q, _tier, _k in scan_shapes(E, 0):
+        if not name.startswith("scan"):
+            continue
+        seen = []
+        orig = AK.block_compact
+
+        def rec(sel, capb):
+            out = orig(sel, capb)
+            seen.append((out[0].cpu().numpy(), capb))
+            return out
+
+        AK.block_compact = rec
+        try:
+            run_shape(engine, make_q)
+        finally:
+            AK.block_compact = orig
+        bc, capb = seen[-1]
+        refiltered = int(((bc > capb) & (bc < AK.BLOCK_ROWS)).sum())
+        log(
+            f"{name}: {len(bc)} blocks of {AK.BLOCK_ROWS} rows over {total} live rows, "
+            f"{int((bc > 0).sum())} with a selected row, {int((bc == AK.BLOCK_ROWS).sum())} full, "
+            f"{refiltered} past the capacity and re-filtered on the host "
+            f"(capb {capb}; a block past {CS._CAPB_MAX} stops the escalation); "
+            f"{int(bc.sum())} selected, at most {int(bc.max())} in a block"
+        )
+        overflow[name] = refiltered
+    return overflow
+
+
+# ---------------------------------------------------------------------------
+# Kernel bench phase (K5)
+
+
+def bench_data(seed: int, n: int, dev):
+    """bench.py's kernel-bench columns for one dataset, made on the device:
+    a multiplicative hash of the row index gives 64 codes, values in
+    [0, 1000) and timestamps in [0, 100) (bench.py ``gen``, in uint32
+    arithmetic, here in int64 masked to 32 bits)."""
+    import torch
+
+    m32 = 0xFFFFFFFF
+    i = (torch.arange(n, dtype=torch.int64, device=dev) + seed * 0x9E3779B9) & m32
+    h = ((i * 2654435761) & m32) ^ (i >> 16)
+    return (
+        (h % NUM_CODES).to(torch.int32),
+        ((h >> 8) % 1000).to(torch.int32),
+        ((h >> 4) % 100).to(torch.int32),
+    )
+
+
+def bench_reference(seed: int, n: int):
+    """bench.py's exact numpy check of one dataset: (sums, counts)."""
+    i = np.arange(n, dtype=np.uint64).astype(np.uint32) + np.uint32(
+        (seed * 0x9E3779B9) & 0xFFFFFFFF
+    )
+    h = (i * np.uint32(2654435761)) ^ (i >> 16)
+    cc = (h % np.uint32(NUM_CODES)).astype(np.int64)
+    vv = ((h >> 8) % np.uint32(1000)).astype(np.int64)
+    m = (h >> 4) % np.uint32(100) >= BENCH_LITERAL
+    sums = np.bincount(cc[m], weights=vv[m], minlength=NUM_CODES).astype(np.int64)
+    counts = np.bincount(cc[m], minlength=NUM_CODES).astype(np.int64)
+    return sums, counts
+
+
+def k5_bench_phase(AK, dev):
+    """bench.py's kernel bench through the port: BENCH_DATASETS datasets of
+    BENCH_ROWS rows resident on the device, ``where ts >= 50 group by
+    codes`` sums and counts over each through filter_group_sum_count, the
+    launch counts set to 0 before and read after; dataset 7's result is
+    checked exactly against numpy, as bench.py checks it. Then the sweep
+    over all datasets is timed with CUDA events."""
+    import torch
+
+    datasets = [bench_data(s, BENCH_ROWS, dev) for s in range(BENCH_DATASETS)]
+    torch.cuda.synchronize()
+    AK.reset_launches()
+    with capture_kernel_args(AK) as seen:
+        outs = [
+            AK.filter_group_sum_count(c, v, t, BENCH_LITERAL, NUM_CODES)
+            for c, v, t in datasets
+        ]
+    launches = dict(AK.LAUNCHES)
+    log(f"main path launches (kernel bench): {json.dumps(launches)}")
+    if launches["filter_group_sum_count"] != BENCH_DATASETS:
+        raise AssertionError("filter_group_sum_count was not launched once per dataset")
+    ref = bench_reference(7, BENCH_ROWS)
+    got = [o.cpu().numpy() for o in outs[7]]
+    if not (np.array_equal(got[0], ref[0]) and np.array_equal(got[1], ref[1])):
+        raise AssertionError("kernel bench: dataset 7 differs from numpy")
+
+    def sweep():
+        for c, v, t in datasets:
+            AK.filter_group_sum_count(c, v, t, BENCH_LITERAL, NUM_CODES)
+
+    ms = cuda_ms(sweep, reps=5, warm=1) / BENCH_DATASETS
+    log(
+        f"kernel bench: {BENCH_DATASETS} datasets x {BENCH_ROWS} rows, dataset 7 "
+        f"== numpy exactly; {ms:.4f} ms per dataset, "
+        f"{BENCH_ROWS / ms * 1e3:.4g} rows/s"
+    )
+    captured = {"filter_group_sum_count": ("the kernel bench", seen["filter_group_sum_count"])}
+    return launches, captured
 
 
 def main() -> int:
@@ -656,14 +1150,27 @@ def main() -> int:
     ).stdout.strip().splitlines()[-1]
     log(f"{smi}; python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}, nvcc: {nvcc}")
     t0 = time.perf_counter()
-    so = AK.build()
-    log(f"built {so} in {time.perf_counter() - t0:.1f} s")
+    libs = AK.build()
+    log(f"built {', '.join(libs.values())} in {time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
     dev = torch.device("cuda", 0)
 
-    errs = kernel_phase(AK, dev, args.parts * ROWS_PER_PART)
+    total = args.parts * ROWS_PER_PART
+    errs = kernel_phase(AK, dev, total)
     torch.cuda.empty_cache()
-    launches, captured = engine_phase(AK, args)
-    rows = main_path_kernels(AK, captured, errs, launches, args.parts * ROWS_PER_PART)
+    launches, captured, (db, engine, generic, data) = engine_phase(AK, args)
+    for more_launches, more_captured in (
+        scan_distinct_phase(AK, db, engine, generic, data, total),
+        k5_bench_phase(AK, dev),
+    ):
+        for k, n in more_launches.items():
+            launches[k] += n
+        for k, v in more_captured.items():
+            captured.setdefault(k, v)
+    live_rows = {k: total for k in KERNELS}
+    live_rows["filter_group_sum_count"] = BENCH_ROWS
+    rows = main_path_kernels(AK, captured, errs, launches, live_rows)
+    if {r["name"] for r in rows} != set(KERNELS):
+        raise AssertionError(f"kernels line lacks {set(KERNELS) - {r['name'] for r in rows}}")
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({

@@ -906,6 +906,14 @@ class CompiledFilterAggregate:
     # is preserved exactly: the kernels return each code's exact first
     # selected row in the concatenated stream, which is first occurrence in
     # the part stream (parts occupy disjoint, ordered row ranges).
+    #
+    # ``row_offsets[i]`` is part i's first row in the flat planes (each part
+    # occupies its ``n_pad`` rows; the last entry is the plane length).
+    # Unlike the JAX package, parts are not padded to a multiple of the
+    # 8192-row compaction block: compiled_scan's blocks may straddle two
+    # parts, and its host re-filter splits such a block by part. A table of
+    # many small parts (Parca's many small inserts) then keeps its planes
+    # at the sum of the parts' padded sizes.
 
     _SUPERPART_CACHE_ENTRIES = 4
 
@@ -917,9 +925,12 @@ class CompiledFilterAggregate:
             self.table._superpart_cache = cache
         sp = cache.get(key)
         if sp is None:
+            row_offsets = np.zeros(len(parts) + 1, dtype=np.int64)
+            np.cumsum([p.device().n_pad for p in parts], out=row_offsets[1:])
             sp = {
                 "parts": list(parts),  # pin ids
                 "planes": {},
+                "row_offsets": row_offsets,
             }
             while len(cache) >= self._SUPERPART_CACHE_ENTRIES:
                 cache.pop(next(iter(cache)))
@@ -1587,6 +1598,29 @@ _CMP_OPS = {
 }
 
 
+def _leaf_mask(leaf, xs, i: int):
+    """One comparison leaf's 0/1 int32 mask plane from its args ``xs[i:]``
+    (laid out by ``_leaf_args`` for the ``_leaf_sig`` tuple ``leaf``);
+    returns the mask and the index past its args. Missing columns resolve
+    statically per row range via the cached ``has`` plane."""
+    if leaf[0] == "int":
+        fv, fvalid, has, lit = xs[i], xs[i + 1], xs[i + 2], xs[i + 3]
+        i += 4
+        m = _CMP_OPS[leaf[1]](fv, lit).to(torch.int32) * fvalid
+        static = leaf[2]
+    elif leaf[0] == "nulllit":
+        fvalid, has = xs[i], xs[i + 1]
+        i += 2
+        m = fvalid if leaf[1] == E.OP_NOT_EQ else (1 - fvalid)
+        static = leaf[2]
+    else:
+        fcodes, fvalid, has, lut = xs[i], xs[i + 1], xs[i + 2], xs[i + 3]
+        i += 4
+        m = _take_clip(lut, fcodes) * fvalid
+        static = leaf[1]
+    return torch.where(has == 1, m, 1 if static else 0).to(torch.int32), i
+
+
 def _build_fused_program(structure):
     """The whole-query function for one query structure: tensor ops around
     the kernels of ops/agg_kernels.py (which launch their CUDA kernels for
@@ -1600,26 +1634,9 @@ def _build_fused_program(structure):
         i = 0
 
         def eval_leaf(leaf):
-            """One comparison leaf's 0/1 int32 mask plane; consumes its
-            args. Missing columns resolve statically per row range via the
-            cached ``has`` plane."""
             nonlocal i
-            if leaf[0] == "int":
-                fv, fvalid, has, lit = xs[i], xs[i + 1], xs[i + 2], xs[i + 3]
-                i += 4
-                m = _CMP_OPS[leaf[1]](fv, lit).to(torch.int32) * fvalid
-                static = leaf[2]
-            elif leaf[0] == "nulllit":
-                fvalid, has = xs[i], xs[i + 1]
-                i += 2
-                m = fvalid if leaf[1] == E.OP_NOT_EQ else (1 - fvalid)
-                static = leaf[2]
-            else:
-                fcodes, fvalid, has, lut = xs[i], xs[i + 1], xs[i + 2], xs[i + 3]
-                i += 4
-                m = _take_clip(lut, fcodes) * fvalid
-                static = leaf[1]
-            return torch.where(has == 1, m, 1 if static else 0).to(torch.int32)
+            m, i = _leaf_mask(leaf, xs, i)
+            return m
 
         combined = None
         for entry in gshape:

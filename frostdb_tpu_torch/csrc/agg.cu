@@ -5,6 +5,10 @@
 //   group_sum_count_kernel<kBand, n>  pallas_fused_band_group_sum_count (K1)
 //   group_sum_count_kernel<kCmp8>     pallas_fused_cmp_group_sum_count (K4)
 //   group_min_max_kernel              pallas_group_min_max (K3)
+//   group_sum_count_kernel<kBand, 1, false>
+//                                     pallas_filter_group_sum_count (K5):
+//                                     one `ts >= literal` clause, sums and
+//                                     counts only (no first-row table)
 //
 // Inputs are flat int32 planes of n rows (the compiled layer's [slabs, 128]
 // planes, read contiguously); codes of selected rows lie in [0, num_codes),
@@ -69,7 +73,9 @@ __device__ __forceinline__ bool selected(const Pred& p, long long i) {
   return s;
 }
 
-template <int MODE, int NCL>
+// FIRST = false drops the first-row table and its atomics (K5 has no
+// first-row output); `first` is then not read or written.
+template <int MODE, int NCL, bool FIRST = true>
 __global__ void __launch_bounds__(kThreads) group_sum_count_kernel(
     const int* __restrict__ codes, const int* __restrict__ values, Pred pred,
     long long n, int num_codes, unsigned int vmask,
@@ -77,11 +83,11 @@ __global__ void __launch_bounds__(kThreads) group_sum_count_kernel(
     unsigned long long* __restrict__ counts, int* __restrict__ first) {
   __shared__ unsigned long long s_sum[kMaxCodes];
   __shared__ unsigned long long s_cnt[kMaxCodes];
-  __shared__ int s_first[kMaxCodes];
+  __shared__ int s_first[FIRST ? kMaxCodes : 1];
   for (int k = threadIdx.x; k < num_codes; k += blockDim.x) {
     s_sum[k] = 0ULL;
     s_cnt[k] = 0ULL;
-    s_first[k] = kInt32Max;
+    if (FIRST) s_first[k] = kInt32Max;
   }
   __syncthreads();
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -95,14 +101,14 @@ __global__ void __launch_bounds__(kThreads) group_sum_count_kernel(
     const unsigned long long v = (unsigned long long)((unsigned)values[i] & vmask);
     atomicAdd(&s_sum[c], v);
     atomicAdd(&s_cnt[c], 1ULL);
-    atomicMin(&s_first[c], (int)i);
+    if (FIRST) atomicMin(&s_first[c], (int)i);
   }
   __syncthreads();
   for (int k = threadIdx.x; k < num_codes; k += blockDim.x) {
     if (s_cnt[k] != 0ULL) {
       atomicAdd(&sums[k], s_sum[k]);
       atomicAdd(&counts[k], s_cnt[k]);
-      atomicMin(&first[k], s_first[k]);
+      if (FIRST) atomicMin(&first[k], s_first[k]);
     }
   }
 }
@@ -191,6 +197,25 @@ extern "C" int fdb_group_sum_count(
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// Sums and counts per code over rows with ts >= lit (K5). The caller fills
+// sums and counts with 0 before the launch.
+extern "C" int fdb_filter_group_sum_count(
+    const void* codes, const void* values, const void* ts, int lit,
+    long long n, int num_codes, unsigned int vmask, void* sums, void* counts,
+    int num_sms, void* stream) {
+  if (num_codes < 1 || num_codes > kMaxCodes) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  Pred p = {};
+  p.p0 = (const int*)ts;
+  p.op0 = 3;  // >=
+  p.lit0 = lit;
+  group_sum_count_kernel<kBand, 1, false>
+      <<<dim3(grid_size(n, num_sms)), kThreads, 0, (cudaStream_t)stream>>>(
+          (const int*)codes, (const int*)values, p, n, num_codes, vmask,
+          (unsigned long long*)sums, (unsigned long long*)counts, nullptr);
   return (int)cudaGetLastError();
 }
 

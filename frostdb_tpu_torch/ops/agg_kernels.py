@@ -1,11 +1,13 @@
-"""Hand-written CUDA kernels of the compiled serving path, with their
+"""Hand-written CUDA kernels of the compiled serving paths, with their
 wrappers, plain PyTorch versions and launch counters.
 
-The counterpart of ``frostdb_tpu/ops/pallas_agg.py``. Source:
-``csrc/agg.cu``, built for ``sm_90a`` with ``nvcc`` into a shared library
-with a plain C interface at first use (under the checkout's
-``build/kernels/``, keyed by a hash of the source and flags), and loaded
-with ``ctypes``. Importing this module builds and loads nothing.
+The counterpart of ``frostdb_tpu/ops/pallas_agg.py``. Sources:
+``csrc/agg.cu`` (the aggregation kernels) and ``csrc/compact.cu`` (block
+compaction), each built for ``sm_90a`` with its own ``nvcc`` (all started
+together) into a shared library with a plain C interface at first use
+(under the checkout's ``build/kernels/``, keyed by a hash of the source and
+flags), and loaded with ``ctypes``. Importing this module builds and loads
+nothing.
 
 | wrapper                       | replaces (pallas_agg.py)               |
 | ----------------------------- | -------------------------------------- |
@@ -13,22 +15,29 @@ with ``ctypes``. Importing this module builds and loads nothing.
 | ``fused_band_group_sum_count``| ``pallas_fused_band_group_sum_count``  |
 | ``fused_cmp_group_sum_count`` | ``pallas_fused_cmp_group_sum_count``   |
 | ``group_min_max``             | ``pallas_group_min_max``               |
+| ``filter_group_sum_count``    | ``pallas_filter_group_sum_count``      |
+| ``block_compact``             | ``pallas_block_compact``               |
 
 Bound on the card: memory bandwidth. Per row, the sum/count kernels read
 the code, the value and one predicate plane per clause (12 B/row for one
 plane, 13 B/row with the int8 base plane); min/max reads codes, values and
-the selection (12 B/row). Their arithmetic is a handful of integer ops per
-row, far below the card's rate, so the bound is bytes / 3.35 TB/s. The
-design reads each plane once, evaluates the predicate in registers (no
-selection plane is written), and keeps the per-code table in shared
-memory; only [K]-sized partials reach device memory. Its shared atomics
-keep it from that bound where a warp's rows share a code (compacted parts
-are sorted by label): see ``csrc/agg.cu`` and PERF.md.
+the selection (12 B/row); block compaction reads the selection (4 B/row)
+and writes ``n_blocks x (1 + capb)`` int32. Their arithmetic is a handful
+of integer ops per row, far below the card's rate, so the bound is bytes /
+3.35 TB/s. The aggregation design reads each plane once, evaluates the
+predicate in registers (no selection plane is written), and keeps the
+per-code table in shared memory; only [K]-sized partials reach device
+memory. Its shared atomics keep it from that bound where a warp's rows
+share a code (compacted parts are sorted by label): see ``csrc/agg.cu`` and
+PERF.md.
 
-Contract differences from the Pallas entries: the third result is the
-EXACT first selected row per code (INT32_MAX when absent), not the first
-8192-row superblock; inputs are any same-shape contiguous int32 planes
-(the compiled layer's ``[slabs, 128]`` layout reads as flat rows).
+Contract differences from the Pallas entries: the third result of the
+sum/count kernels is the EXACT first selected row per code (INT32_MAX when
+absent), not the first 8192-row superblock; inputs are any same-shape
+contiguous int32 planes (the compiled layer's ``[slabs, 128]`` layout reads
+as flat rows). ``block_compact`` takes a flat plane whose last 8192-row
+block may be partial, and fills the slots past a block's count with -1 (the
+Pallas kernel leaves them undefined).
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel or raises; a failed build raises.
@@ -42,6 +51,7 @@ import os
 import shutil
 import subprocess
 import threading
+import types
 from typing import Optional, Sequence
 
 import torch
@@ -59,7 +69,12 @@ LAUNCHES: dict[str, int] = {
     "fused_band_group_sum_count": 0,
     "fused_cmp_group_sum_count": 0,
     "group_min_max": 0,
+    "filter_group_sum_count": 0,
+    "block_compact": 0,
 }
+
+# Rows per block of block_compact (pallas_agg.ROWS_PER_SUPER).
+BLOCK_ROWS = 8192
 
 
 def reset_launches() -> None:
@@ -71,7 +86,11 @@ _OPS = {"<": 0, "<=": 1, ">": 2, ">=": 3, "==": 4, "!=": 5}
 _MODE_SEL, _MODE_BAND, _MODE_CMP8 = 0, 1, 2
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "agg.cu")
+# library name -> CUDA source
+SOURCES = {
+    "agg": os.path.join(_PKG, "csrc", "agg.cu"),
+    "compact": os.path.join(_PKG, "csrc", "compact.cu"),
+}
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = (
     "-gencode",
@@ -85,7 +104,7 @@ NVCC_FLAGS = (
     "-v",
 )
 
-_lib: Optional[ctypes.CDLL] = None
+_lib: Optional[types.SimpleNamespace] = None
 _lib_lock = threading.Lock()
 
 
@@ -98,49 +117,80 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> str:
-    """Compile ``csrc/agg.cu`` (once per source and flag set) and return the
-    shared library's path. Raises with the compiler's output on failure.
-    ``-Xptxas -v``'s report is kept beside the library."""
-    with open(SOURCE, "rb") as f:
+def _so_path(name: str, source: str) -> str:
+    with open(source, "rb") as f:
         src = f.read()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so_path = os.path.join(BUILD_DIR, f"libagg-{digest}.so")
-    if os.path.exists(so_path):
-        return so_path
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def build() -> dict[str, str]:
+    """Compile every source of ``SOURCES`` not built yet (once per source
+    and flag set), one ``nvcc`` per source, all started together, and
+    return each shared library's path by name. Raises with the compiler's
+    output on failure. ``-Xptxas -v``'s report is kept beside each
+    library."""
+    paths = {name: _so_path(name, src) for name, src in SOURCES.items()}
+    todo = {n: p for n, p in paths.items() if not os.path.exists(p)}
+    if not todo:
+        return paths
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so_path}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-        capture_output=True,
-        text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+    nvcc = _nvcc()
+    procs = {}
+    for name, so_path in todo.items():
+        tmp = f"{so_path}.{os.getpid()}.tmp"
+        procs[name] = (
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCES[name]],
+                stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE,
+                text=True,
+            ),
+            tmp,
         )
-    with open(so_path[:-3] + ".ptxas.txt", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, so_path)
-    return so_path
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc {SOURCES[name]} failed ({proc.returncode}):\n{out}\n{err}")
+            continue
+        so_path = todo[name]
+        with open(so_path[:-3] + ".ptxas.txt", "w") as f:
+            f.write(out + err)
+        os.replace(tmp, so_path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
-def _load() -> ctypes.CDLL:
+def _load() -> types.SimpleNamespace:
+    """The C entries of every kernel library, built at first use."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
+            paths = build()
+            agg = ctypes.CDLL(paths["agg"])
+            compact = ctypes.CDLL(paths["compact"])
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.fdb_group_sum_count.argtypes = (
-                [i, i] + [p] * 6 + [i] * 6
-                + [ctypes.c_longlong, i, ctypes.c_uint] + [p] * 3 + [i, p]
+            ll, u = ctypes.c_longlong, ctypes.c_uint
+            agg.fdb_group_sum_count.argtypes = (
+                [i, i] + [p] * 6 + [i] * 6 + [ll, i, u] + [p] * 3 + [i, p]
             )
-            lib.fdb_group_sum_count.restype = i
-            lib.fdb_group_min_max.argtypes = (
-                [p] * 3 + [ctypes.c_longlong, i] + [p] * 2 + [i, p]
+            agg.fdb_group_sum_count.restype = i
+            agg.fdb_group_min_max.argtypes = [p] * 3 + [ll, i] + [p] * 2 + [i, p]
+            agg.fdb_group_min_max.restype = i
+            agg.fdb_filter_group_sum_count.argtypes = (
+                [p] * 3 + [i, ll, i, u] + [p] * 2 + [i, p]
             )
-            lib.fdb_group_min_max.restype = i
-            _lib = lib
+            agg.fdb_filter_group_sum_count.restype = i
+            compact.fdb_block_compact.argtypes = [p, ll, i, p, p, p]
+            compact.fdb_block_compact.restype = i
+            _lib = types.SimpleNamespace(
+                fdb_group_sum_count=agg.fdb_group_sum_count,
+                fdb_group_min_max=agg.fdb_group_min_max,
+                fdb_filter_group_sum_count=agg.fdb_filter_group_sum_count,
+                fdb_block_compact=compact.fdb_block_compact,
+            )
     return _lib
 
 
@@ -245,6 +295,35 @@ def group_min_max_plain(codes, values, sel, num_codes):
     c = codes.reshape(-1)
     s = (sel.reshape(-1) > 0) & (c >= 0) & (c < num_codes)
     return fused.group_min_max_scatter(c, values.reshape(-1), s, num_codes)
+
+
+def filter_group_sum_count_plain(
+    codes, values, ts, literal, num_codes, num_digits=2
+):
+    sums, counts, _first = _sum_count(
+        codes, values, ts >= int(literal), num_codes, num_digits
+    )
+    return sums, counts
+
+
+def block_compact_plain(sel, capb):
+    """Per 8192-row block: the selected count, and the first ``capb``
+    selected offsets by a per-block ``cumsum`` rank and a scatter (-1 past
+    the count)."""
+    flat = sel.reshape(-1) != 0
+    n = flat.numel()
+    n_blocks = -(-n // BLOCK_ROWS)
+    m = torch.zeros(n_blocks * BLOCK_ROWS, dtype=torch.int32, device=sel.device)
+    m[:n] = flat.to(torch.int32)
+    m = m.reshape(n_blocks, BLOCK_ROWS)
+    bc = m.sum(dim=1, dtype=torch.int32)
+    rank = torch.cumsum(m, dim=1, dtype=torch.int64) - 1
+    keep = (m != 0) & (rank < capb)
+    blk = torch.arange(n_blocks, device=sel.device).unsqueeze(1)
+    off = torch.arange(BLOCK_ROWS, dtype=torch.int32, device=sel.device)
+    idx = torch.full((n_blocks * capb,), -1, dtype=torch.int32, device=sel.device)
+    idx[(blk * capb + rank)[keep]] = off.expand(n_blocks, -1)[keep]
+    return bc, idx.reshape(n_blocks, capb)
 
 
 # ---------------------------------------------------------------------------
@@ -414,3 +493,74 @@ def group_min_max(codes, values, sel, num_codes: int):
     if codes.device.type == "cpu":
         return group_min_max_plain(codes, values, sel, num_codes)
     return _launch_min_max(codes, values, sel, num_codes)
+
+
+def filter_group_sum_count(
+    codes, values, ts, literal, num_codes: int, num_digits: int = 2
+):
+    """Exact (sums[K] int64, counts[K] int64) over rows with ``ts >=
+    literal``, the compare evaluated in the kernel; codes/values/ts are
+    same-shape contiguous int32 planes, values summed masked to
+    ``num_digits`` base-128 digits (K5's bench entry)."""
+    lit = _check_literal(literal)
+    _check_planes(
+        [("codes", codes, torch.int32), ("values", values, torch.int32),
+         ("ts", ts, torch.int32)]
+    )
+    _check_codes(num_codes)
+    _check_digits(num_digits)
+    if codes.device.type == "cpu":
+        return filter_group_sum_count_plain(
+            codes, values, ts, lit, num_codes, num_digits
+        )
+    dev = codes.device
+    sums = torch.zeros(num_codes, dtype=torch.int64, device=dev)
+    counts = torch.zeros(num_codes, dtype=torch.int64, device=dev)
+    if codes.numel() == 0:
+        return sums, counts
+    lib = _load()
+    with torch.cuda.device(dev):
+        num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        err = lib.fdb_filter_group_sum_count(
+            codes.data_ptr(), values.data_ptr(), ts.data_ptr(), lit,
+            codes.numel(), num_codes, _value_mask(num_digits),
+            sums.data_ptr(), counts.data_ptr(), num_sms,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"filter_group_sum_count kernel launch failed: cuda error {err}"
+        )
+    LAUNCHES["filter_group_sum_count"] += 1
+    return sums, counts
+
+
+def block_compact(sel, capb: int):
+    """(bc int32[n_blocks], idx int32[n_blocks, capb]) over 8192-row
+    blocks of the 0/1 int32 plane ``sel`` (any contiguous shape, read as
+    flat rows; the last block may be partial): ``bc[b]`` is block b's
+    selected count and ``idx[b]`` its first ``capb`` selected block-local
+    offsets in ascending order, -1 past ``bc[b]``."""
+    _check_planes([("sel", sel, torch.int32)])
+    capb = int(capb)
+    if not 1 <= capb <= BLOCK_ROWS:
+        raise ValueError(f"capb must be in [1, {BLOCK_ROWS}], got {capb}")
+    if sel.device.type == "cpu":
+        return block_compact_plain(sel, capb)
+    n = sel.numel()
+    n_blocks = -(-n // BLOCK_ROWS)
+    dev = sel.device
+    bc = torch.empty(n_blocks, dtype=torch.int32, device=dev)
+    idx = torch.empty((n_blocks, capb), dtype=torch.int32, device=dev)
+    if n == 0:
+        return bc, idx
+    lib = _load()
+    with torch.cuda.device(dev):
+        err = lib.fdb_block_compact(
+            sel.data_ptr(), n, capb, bc.data_ptr(), idx.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"block_compact kernel launch failed: cuda error {err}")
+    LAUNCHES["block_compact"] += 1
+    return bc, idx

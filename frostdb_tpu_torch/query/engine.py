@@ -19,13 +19,7 @@ from ..memorylimit import LimitAllocator
 
 # Serving tiers of the reference engine that this package does not have yet.
 NOT_PORTED = "not ported"
-UNPORTED_TIERS = (
-    "compiled_join",
-    "dense",
-    "compiled_distinct",
-    "schema_meta",
-    "compiled_scan",
-)
+UNPORTED_TIERS = ("compiled_join", "dense")
 
 
 class LocalEngine:
@@ -205,17 +199,43 @@ class LocalQueryBuilder:
             # engine's exact result or declines with a recorded reason:
             #   compiled          fused filter+group-aggregate on the
             #                     hand-written CUDA kernels (ops/agg_kernels)
-            # The reference's later tiers (compiled_join, dense,
-            # compiled_distinct, schema_meta, compiled_scan) are not ported
-            # yet: each records NOT_PORTED and the generic DAG serves the
-            # query, exactly. MemoryLimitExceeded propagates as a query
+            #   compiled_distinct fused distinct (Parca Types/Values)
+            #   schema_meta       schema scans from part metadata (Labels)
+            # The reference's compiled_join and dense tiers sit between
+            # compiled and compiled_distinct; they are not ported yet and
+            # record NOT_PORTED. MemoryLimitExceeded propagates as a query
             # error, never as a fallback.
             from ..compiled import lower_plan
+            from ..compiled_distinct import lower_plan_distinct
+            from ..schema_meta import lower_plan_schema
 
             if try_tier("compiled", lower_plan):
                 return
             for path in UNPORTED_TIERS:
                 reasons[path] = NOT_PORTED
+            for path, lower in (
+                ("compiled_distinct", lower_plan_distinct),
+                ("schema_meta", lower_plan_schema),
+            ):
+                if try_tier(path, lower):
+                    return
+            # Device-resident filter->project row retrieval streams its
+            # batches (compiled_scan.py) — collected only when an epilogue
+            # must sort/slice the whole result.
+            from ..compiled_scan import lower_plan_scan
+
+            try:
+                prog = lower_plan_scan(inner, self.engine.exec_options)
+                if post_order is None and post_limit is None:
+                    prog.execute_into(callback)
+                else:
+                    outs: list = []
+                    prog.execute_into(outs.append)
+                    emit(outs)
+                self._mark_path("compiled_scan", reasons, root_span)
+                return
+            except NotCompilable as e:
+                reasons["compiled_scan"] = str(e) or type(e).__name__
         with _span("physical/build"):
             output = build_physical(plan, self.engine.exec_options)
         self._mark_path("generic", reasons, root_span)

@@ -273,19 +273,24 @@ def test_ordered_segment_sum_signed_zeros_and_empty_segments():
 
 
 def test_unported_tiers_fall_back_exactly(directed):
-    """A shape the compiled tier declines (a null-key-free distinct) is
-    served by the generic DAG with every unported tier recorded."""
+    """A group-by past the compiled tier's 2048 codes (the JAX package's
+    dense tier) is served by the generic DAG with the unported tiers
+    recorded, and gives the JAX package's rows."""
     jdb, pdb = directed
 
     def make_q(eng, E):
-        return eng.scan_table("t").distinct(E.Col("h"))
+        return eng.scan_table("t").aggregate(
+            [E.Sum(E.Col("v")), E.Count(E.Col("v"))], [E.Col("g"), E.Col("ts")]
+        )
 
-    ref, _ = run_jax(jdb, make_q)
+    ref, jpath = run_jax(jdb, make_q, compiled=True)
+    assert jpath == "dense"
     out, path, reasons = run_port(pdb, make_q)
     assert out == ref
     assert path == "generic"
-    assert reasons["dense"] == "not ported"
-    assert "compiled" in reasons
+    assert reasons["compiled"].startswith("group code space")
+    assert reasons["compiled_join"] == reasons["dense"] == "not ported"
+    assert "compiled_distinct" in reasons and "compiled_scan" in reasons
 
 
 # ---------------------------------------------------------------------------

@@ -349,3 +349,144 @@ def test_wrapper_rejects_bad_inputs(case):
             AK.fused_band_group_sum_count(c, v, (s,), (1,), k, nd, ("!=",))
         else:
             AK.group_sum_count(c, v, s, k, nd)
+
+
+# ---------------------------------------------------------------------------
+# K5: filter_group_sum_count vs pallas_filter_group_sum_count and its XLA
+# twin (ops/fused.filter_group_sum_count over the `ts >= literal` mask)
+
+
+@pytest.mark.parametrize(
+    "num_codes,n_super,num_digits,vmax,lit",
+    [
+        (64, 2, 2, 1000, 50),  # bench.py's shape: 64 codes, literal 50
+        (129, 1, 3, 1 << 21, 0),  # every row selected
+        (1, 1, 2, 1 << 14, 100),  # no row selected
+        (64, 1, 2, 2**31 - 1, 30),  # values past 2 digits: the digit mask
+    ],
+)
+def test_filter_group_sum_count_vs_pallas(
+    interpret, num_codes, n_super, num_digits, vmax, lit
+):
+    c, v, ts, _s, _b = _planes(13, n_super, num_codes, vmax)
+    sums, counts = AK.filter_group_sum_count(
+        torch.from_numpy(c), torch.from_numpy(v), torch.from_numpy(ts), lit,
+        num_codes, num_digits,
+    )
+    js, jc = PA.pallas_filter_group_sum_count(
+        jnp.asarray(c), jnp.asarray(v), jnp.asarray(ts), lit, num_codes, num_digits
+    )
+    np.testing.assert_array_equal(sums.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jc))
+    assert sums.dtype == counts.dtype == torch.int64
+
+
+@pytest.mark.parametrize("num_codes,lit", [(64, 50), (2048, 10)])
+def test_filter_group_sum_count_vs_xla_twin(num_codes, lit):
+    rng = np.random.default_rng(14)
+    n = 1 << 16
+    c = rng.integers(0, num_codes, n).astype(np.int32)
+    v = rng.integers(0, 1000, n).astype(np.int32)
+    ts = rng.integers(0, 100, n).astype(np.int32)
+    sums, counts = AK.filter_group_sum_count(
+        torch.from_numpy(c), torch.from_numpy(v), torch.from_numpy(ts), lit, num_codes
+    )
+    js, jc = JF.filter_group_sum_count(
+        jnp.asarray(c), jnp.asarray(v), jnp.asarray(ts >= lit), num_codes, 2
+    )
+    np.testing.assert_array_equal(sums.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jc))
+
+
+# ---------------------------------------------------------------------------
+# K6: block_compact vs pallas_block_compact and the JAX scan program's CPU
+# path (compiled_scan._build_scan_program: per-block top_k, -1 past the
+# count)
+
+
+def _compact_sel(seed, n_blocks, probs, n=None):
+    """A 0/1 int32 plane of n rows (default n_blocks * 8192), block b
+    selected with probability probs[b]."""
+    rng = np.random.default_rng(seed)
+    p = np.repeat(np.asarray(probs, dtype=np.float64), ROWS_PER_SUPER)
+    sel = (rng.random(n_blocks * ROWS_PER_SUPER) < p).astype(np.int32)
+    if n is not None:
+        sel = sel[:n]
+    return sel
+
+
+def _jax_compact(sel, capb):
+    """(bc, idx) of the JAX scan program's CPU path over the zero-padded
+    plane: every selected row is valid, no filter clause."""
+    import frostdb_tpu.compiled_scan as JCS
+
+    n_blocks = -(-len(sel) // ROWS_PER_SUPER)
+    full = np.zeros(n_blocks * ROWS_PER_SUPER, np.int32)
+    full[: len(sel)] = sel
+    blob = np.asarray(JCS._build_scan_program(((), False), capb, n_blocks)(full))
+    return blob[:n_blocks], blob[n_blocks:].reshape(n_blocks, capb), full
+
+
+@pytest.mark.parametrize(
+    "capb,probs,n",
+    [
+        (16, [1.0, 0.0, 0.001], None),  # all selected, empty, sparse
+        (128, [0.01, 0.02], None),
+        (1024, [0.5], None),  # 4096 selected past the capacity
+        (16, [0.002, 0.3], 8192 + 5000),  # partial last block
+    ],
+)
+def test_block_compact_vs_pallas(interpret, capb, probs, n):
+    sel = _compact_sel(15, len(probs), probs, n)
+    bc, idx = (t.numpy() for t in AK.block_compact(torch.from_numpy(sel), capb))
+    jbc, jidx, full = _jax_compact(sel, capb)
+    np.testing.assert_array_equal(bc, jbc)
+    np.testing.assert_array_equal(idx, jidx)
+    pbc, pidx = PA.pallas_block_compact(jnp.asarray(full.reshape(-1, 128)), capb)
+    pbc, pidx = np.asarray(pbc), np.asarray(pidx)
+    np.testing.assert_array_equal(bc, pbc)
+    for b in range(len(bc)):
+        k = min(int(bc[b]), capb)
+        np.testing.assert_array_equal(idx[b, :k], pidx[b, :k])
+        np.testing.assert_array_equal(idx[b, k:], -1)
+
+
+@pytest.mark.parametrize("capb", [16, 128, 1024])
+def test_block_compact_exact_capacity_and_edges(capb):
+    """Blocks with exactly capb, capb + 1 and capb - 1 selected rows, an
+    all-selected block, an empty one, a ragged length and an empty plane."""
+    rng = np.random.default_rng(16)
+    n = 5 * ROWS_PER_SUPER + 777
+    sel = np.zeros(n, np.int32)
+    for b, k in enumerate([capb, capb + 1, capb - 1]):
+        sel[b * ROWS_PER_SUPER + rng.choice(ROWS_PER_SUPER, k, replace=False)] = 1
+    sel[3 * ROWS_PER_SUPER : 4 * ROWS_PER_SUPER] = 1
+    sel[-100:] = 1
+    bc, idx = (t.numpy() for t in AK.block_compact(torch.from_numpy(sel), capb))
+    jbc, jidx, _full = _jax_compact(sel, capb)
+    np.testing.assert_array_equal(bc, jbc)
+    np.testing.assert_array_equal(idx, jidx)
+    assert bc.tolist() == [capb, capb + 1, capb - 1, ROWS_PER_SUPER, 0, 100]
+    for b in range(len(bc)):
+        ref = np.flatnonzero(sel[b * ROWS_PER_SUPER : (b + 1) * ROWS_PER_SUPER])
+        np.testing.assert_array_equal(idx[b, : min(len(ref), capb)], ref[:capb])
+    ebc, eidx = AK.block_compact(torch.zeros(0, dtype=torch.int32), capb)
+    assert ebc.shape == (0,) and eidx.shape == (0, capb)
+
+
+def test_new_kernels_cpu_and_empty_inputs_count_nothing(monkeypatch):
+    def no_load():
+        raise AssertionError("library loaded on the CPU path")
+
+    monkeypatch.setattr(AK, "_load", no_load)
+    AK.reset_launches()
+    c, v, s = _flat(17, 3000, 8)
+    tc, tv = torch.from_numpy(c), torch.from_numpy(v)
+    AK.filter_group_sum_count(tc, tv, tv, 5, 8, 3)
+    AK.block_compact(torch.from_numpy(s.astype(np.int32)), 16)
+    assert all(n == 0 for n in AK.LAUNCHES.values())
+    for capb in (0, AK.BLOCK_ROWS + 1):
+        with pytest.raises(ValueError):
+            AK.block_compact(torch.from_numpy(s.astype(np.int32)), capb)
+    with pytest.raises(TypeError):
+        AK.block_compact(torch.from_numpy(s), 16)
