@@ -5,8 +5,12 @@
 
 Builds the CUDA kernels from frostdb_tpu_torch/csrc/ (one nvcc per source,
 all started together) and holds each kernel against its plain PyTorch
-version on the card (edge cases, exactly). Then drives three paths, each
-with the launch counts set to 0 just before it and read just after:
+version on the card (edge cases, exactly; for the sum/count kernels also
+the code layouts they are designed for: sorted runs across the vector,
+warp, block and grid-stride boundaries, one code, two random codes,
+out-of-range codes, ragged lengths, 2048 codes, unaligned planes, and the
+count-only pass). Then drives three paths, each with the launch counts set
+to 0 just before it and read just after:
 
 1. the aggregate shapes (slice 1): the engine's hot filter + group-by
    query shapes through LocalEngine on a 32 x 2^21-row table (the shape of
@@ -21,7 +25,8 @@ with the launch counts set to 0 just before it and read just after:
 3. the kernel bench (bench.py's data): 8 datasets of 2^25 rows through the
    fused `ts >= literal` sum/count kernel, checked exactly against numpy.
 
-Last, each kernel is checked and timed on the inputs its path gave it,
+Last, each kernel is checked and timed on the inputs its path gave it
+(the sum/count kernels K1 and K2 on every shape that launches them),
 beside its plain version and a one-call PyTorch yardstick. Prints a
 ``kernels`` JSON line and, last, an ``ok`` JSON line. Exits non-zero,
 printing no result, without a CUDA device or without the package beside
@@ -65,6 +70,9 @@ SLICE1_KERNELS = (
     "fused_band_group_sum_count", "group_sum_count", "group_min_max",
     "fused_cmp_group_sum_count",
 )
+# Kernels captured and timed on every shape that launches them (the rest on
+# the first shape only).
+PER_SHAPE_KERNELS = ("fused_band_group_sum_count", "group_sum_count")
 
 # Position of num_codes among each wrapper's arguments.
 NUM_CODES_ARG = {
@@ -81,7 +89,8 @@ def log(*a) -> None:
 
 
 def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
-    """Median device time of one call, from CUDA events around each call."""
+    """Median time of one call alone, from CUDA events around each call:
+    where the device waits on the host's launch work, that wait counts."""
     import torch
 
     for _ in range(warm):
@@ -96,6 +105,24 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def chained_ms(fn, reps: int = 20, warm: int = 2) -> float:
+    """Time per call over ``reps`` calls issued back to back between two
+    CUDA events: the device's time per call once the host's launch work
+    overlaps the calls before it."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def max_abs_err(out, ref) -> int:
@@ -198,11 +225,107 @@ def new_kernel_edge_cases(AK, dev, errs) -> None:
     )
 
 
+def layout_codes(layout, n, k, g, dev):
+    """Codes of n rows in one of the layouts the sum/count kernels are
+    designed for: "uniform", "one code", "2 random codes", "runs:L" (runs
+    of L rows, each of one random code) or "oor runs:L" (the same with 5%
+    of the rows holding codes outside [0, k))."""
+    import torch
+
+    if layout == "uniform":
+        return torch.randint(0, k, (n,), generator=g, device=dev, dtype=torch.int32)
+    if layout == "one code":
+        return torch.full((n,), k - 1, dtype=torch.int32, device=dev)
+    if layout == "2 random codes":
+        return torch.randint(0, 2, (n,), generator=g, device=dev, dtype=torch.int32)
+    kind, length = layout.split(":")
+    run = int(length)
+    per_run = torch.randint(0, k, (-(-n // run),), generator=g, device=dev, dtype=torch.int32)
+    codes = per_run.repeat_interleave(run)[:n].contiguous()
+    if kind == "oor runs":
+        junk = torch.tensor([-1, k, k + 1000, -(2**31)], dtype=torch.int32, device=dev)
+        pick = junk[torch.randint(0, 4, (n,), generator=g, device=dev)]
+        codes = torch.where(torch.rand(n, generator=g, device=dev) < 0.05, pick, codes)
+    return codes
+
+
+def sum_count_calls(codes, values, ts, sel, base8, k, nd, lit):
+    """(name, wrapper args) of K1 (one and three clauses), K2, K4 and K5 on
+    one input set, and of K1, K2 and K4 counting only (no value plane)."""
+    calls = []
+    for vals in (values, None):
+        calls += [
+            ("fused_band_group_sum_count", (codes, vals, (ts,), (lit,), k, nd, (">=",))),
+            ("fused_band_group_sum_count",
+             (codes, vals, (ts, ts, sel), (lit, lit + 500, 1), k, nd, (">=", "<", "=="))),
+            ("group_sum_count", (codes, vals, sel, k, nd)),
+            ("fused_cmp_group_sum_count", (codes, vals, ts, base8, lit, k, nd, "!=")),
+        ]
+    calls.append(("filter_group_sum_count", (codes, values, ts, lit, k, nd)))
+    return calls
+
+
+def layout_edge_cases(AK, dev, errs) -> None:
+    """The sum/count kernels (K1, K2, K4, K5, and the count-only pass)
+    against their plain versions, exactly, on the code layouts they are
+    designed for: sorted runs of 1-513 rows and longer (crossing the 4-row
+    vector, the 32-lane warp, the block and the grid stride), one code over
+    all rows, 2 random codes, out-of-range codes inside runs, 2048 codes
+    (the shared block table), n not a multiple of 4, values whose masked
+    sums pass 2^32 in one run, and planes at a 4-byte offset (scalar loads)
+    and a 16-byte one (vector loads)."""
+    import torch
+
+    n = (1 << 20) + 3
+    cases = [(n, 64, f"runs:{r}", 1 << 14, 2) for r in (1, 3, 4, 31, 32, 33, 511, 513)]
+    # 4 x 2^20 rows: more than one grid stride of the 132-SM card (4 blocks
+    # an SM, 2048 rows a block a step), so runs also cross the stride.
+    cases += [((1 << 22) + 3, 64, f"runs:{r}", 1 << 14, 2) for r in (4099, 1 << 17)]
+    cases += [
+        (n, 64, "one code", 1 << 14, 2),
+        ((1 << 20) + 1, 1, "one code", -1, 5),  # every value 2^32 - 1
+        ((1 << 20) + 2, 2, "2 random codes", 1 << 14, 2),
+        (n, 64, "oor runs:100", 2**31 - 1, 5),
+        (n, 2048, "uniform", 1 << 14, 2),
+        (n, 2048, "runs:7", 1 << 14, 3),
+        (n, 300, "runs:513", 1 << 14, 2),
+        (n, 256, "runs:33", 1 << 14, 2),
+    ]
+    checked = 0
+    for i, (rows, k, layout, vmax, nd) in enumerate(cases):
+        g = torch.Generator(device=dev).manual_seed(500 + i)
+        codes = layout_codes(layout, rows, k, g, dev)
+        if vmax == -1:
+            values = torch.full((rows,), -1, dtype=torch.int32, device=dev)
+        else:
+            values = torch.randint(0, vmax, (rows,), generator=g, device=dev, dtype=torch.int64).to(torch.int32)
+        ts = torch.randint(0, 1000, (rows,), generator=g, device=dev, dtype=torch.int32)
+        sel = (torch.rand(rows, generator=g, device=dev) < 0.7).to(torch.int32)
+        base8 = (torch.rand(rows, generator=g, device=dev) < 0.9).to(torch.int8)
+        planes = [codes, values, ts, sel, base8]
+        offsets = (0, 1, 4) if layout == "runs:33" and k == 64 else (0,)
+        for off in offsets:
+            x = [t[off:] for t in planes]
+            for name, args in sum_count_calls(*x, k, nd, 300):
+                out = getattr(AK, name)(*args)
+                torch.cuda.synchronize()
+                e = max_abs_err(out, getattr(AK, name + "_plain")(*args))
+                errs[name] = max(errs[name], e)
+                checked += 1
+                if e:
+                    raise AssertionError(
+                        f"{name} on {layout}, n={rows - off}, K={k}, offset {off} rows, "
+                        f"count only {args[1] is None}: max abs err {e}"
+                    )
+    log(f"kernel layout cases: {checked} sum/count calls over {len(cases)} code layouts exact")
+
+
 def kernel_phase(AK, dev, main_rows):
     import torch
 
     errs = {k: 0 for k in KERNELS}
     new_kernel_edge_cases(AK, dev, errs)
+    layout_edge_cases(AK, dev, errs)
     # Edge cases: code spaces, every row filtered out, a ragged length,
     # values near 2^31, 3-clause bands with a dict-style equality.
     cases = [
@@ -274,14 +397,14 @@ def _selection(name, args):
 
 @contextlib.contextmanager
 def capture_kernel_args(AK):
-    """Record the first arguments each kernel wrapper gets while the block
-    runs; the wrappers are restored after it."""
-    seen: dict = {}
+    """Record (name, arguments) of every kernel wrapper call made while the
+    block runs, in order; the wrappers are restored after it."""
+    seen: list = []
     saved = {name: getattr(AK, name) for name in KERNELS}
 
     def recorder(name, fn):
         def call(*args):
-            seen.setdefault(name, args)
+            seen.append((name, args))
             return fn(*args)
 
         return call
@@ -295,6 +418,18 @@ def capture_kernel_args(AK):
             setattr(AK, name, fn)
 
 
+def keep_captures(captured, shape, calls) -> None:
+    """Add one shape's kernel calls ``calls`` [(name, args)] to
+    ``captured`` {(name, shape): args}: each kernel's first call of the
+    shape for PER_SHAPE_KERNELS, a kernel's first call of any shape for the
+    rest."""
+    for name, args in calls:
+        if name in PER_SHAPE_KERNELS:
+            captured.setdefault((name, shape), args)
+        elif all(n != name for n, _shape in captured):
+            captured[(name, shape)] = args
+
+
 def main_path_kernels(AK, captured, errs, launches, live_rows):
     """Each kernel against its plain version on the inputs its path gave
     it, timed beside the plain version and a one-call yardstick. The bound
@@ -304,11 +439,15 @@ def main_path_kernels(AK, captured, errs, launches, live_rows):
     reads no other), plus the outputs; for block compaction the selection
     plane and the ``n_blocks x (1 + capb)`` output. ``bound_live_ms``
     counts the planes over ``live_rows[name]`` rows only, the bound once
-    parts are not padded."""
+    parts are not padded. A count-only call (``values`` None) reads the
+    code of each selected row and no value. Every plane must be 16-byte
+    aligned, so the sum/count kernels take their vector loads."""
     import torch
 
     rows = []
-    for name, (shape, args) in captured.items():
+    for (name, shape), args in captured.items():
+        if any(t.data_ptr() % 16 for t in _tensors(args)):
+            raise AssertionError(f"{name} on {shape}'s inputs: a plane is not 16-byte aligned")
         wrapper = getattr(AK, name)
         plain = getattr(AK, name + "_plain")
         out = wrapper(*args)
@@ -345,14 +484,14 @@ def main_path_kernels(AK, captured, errs, launches, live_rows):
                     torch.full((k,), 2**31 - 1, dtype=torch.int32, device=codes.device).scatter_reduce_(0, codes64, vmin, "amin")
                     torch.full((k,), -(2**31), dtype=torch.int32, device=codes.device).scatter_reduce_(0, codes64, vmax, "amax")
             else:
-                masked = torch.where(live, values.long(), 0)
+                masked = live.long() if values is None else torch.where(live, values.long(), 0)
 
                 def library():
                     torch.zeros(k, dtype=torch.int64, device=codes.device).index_add_(0, codes64, masked)
 
             plane_bytes = sum(t.numel() * t.element_size() for t in _tensors(args[2:]))
-            row_bytes = n_sel * (codes.element_size() + values.element_size())
-            what = f"K={k}"
+            row_bytes = n_sel * (4 if values is None else 8)
+            what = f"K={k}" + (", count only" if values is None else "")
         live_n = live_rows[name]
         ops_per_row = KERNELS[name][1]
         bytes_ms = (plane_bytes + row_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
@@ -362,17 +501,20 @@ def main_path_kernels(AK, captured, errs, launches, live_rows):
             live_bytes / HBM_BYTES_PER_S * 1e3,
             live_n * ops_per_row / INT32_OPS_PER_S * 1e3,
         )
-        ms = cuda_ms(lambda: wrapper(*args))
-        plain_ms = cuda_ms(lambda: plain(*args))
-        lib_ms = cuda_ms(library)
+        ms = chained_ms(lambda: wrapper(*args))
+        call_ms = cuda_ms(lambda: wrapper(*args))
+        plain_ms = chained_ms(lambda: plain(*args), reps=5, warm=1)
+        lib_ms = chained_ms(library, reps=5, warm=1)
         rows.append({
             "name": name,
+            "shape": shape,
             "route": "cuda",
             "source": "frostdb_tpu_torch/csrc/" + KERNELS[name][2],
             "replaces": KERNELS[name][0],
             "launches": launches[name],
             "max_abs_err": max(errs[name], e),
             "ms": ms,
+            "call_ms": call_ms,
             "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -380,7 +522,8 @@ def main_path_kernels(AK, captured, errs, launches, live_rows):
             "library_ms": lib_ms,
         })
         log(
-            f"kernel {name} on {shape}'s inputs: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+            f"kernel {name} on {shape}'s inputs: {ms:.4f} ms a call in a chain, "
+            f"{call_ms:.4f} ms alone (plain {plain_ms:.4f} ms, "
             f"library {lib_ms:.4f} ms, bound {rows[-1]['bound_ms']:.4f} ms on "
             f"{n} padded rows, {live_ms:.4f} ms on {live_n} live rows) "
             f"with {n_sel} selected, {what}"
@@ -552,24 +695,23 @@ def engine_phase(AK, args, device="cuda"):
     torch.cuda.synchronize()
 
     # The main path: every count to 0, the five shapes once, counts read.
-    # Each kernel's first inputs are kept for main_path_kernels.
+    # The kernels' inputs are kept for main_path_kernels.
     AK.reset_launches()
     results = []
-    first_shape: dict = {}
+    captured: dict = {}
     with capture_kernel_args(AK) as seen:
         for name, filt, aggs, kernels in shapes(E, 40):
             before = dict(AK.LAUNCHES)
+            n_seen = len(seen)
             out = run_query(engine, "t", filt, aggs, E)
             moved = {k for k in AK.LAUNCHES if AK.LAUNCHES[k] > before[k]}
             if engine.last_serving_path != "compiled":
                 raise AssertionError(f"{name}: served by {engine.last_serving_path}: {engine.last_fallback_reasons}")
             if moved != kernels:
                 raise AssertionError(f"{name}: launched {moved}, expected {kernels}")
-            for k in moved:
-                first_shape.setdefault(k, name)
+            keep_captures(captured, name, seen[n_seen:])
             results.append((name, out))
     launches = dict(AK.LAUNCHES)
-    captured = {k: (first_shape[k], seen[k]) for k in KERNELS if k in seen}
     log(f"main path launches (aggregate shapes): {json.dumps(launches)}")
     for k in SLICE1_KERNELS:
         if launches[k] == 0:
@@ -887,21 +1029,20 @@ def scan_distinct_phase(AK, db, engine, generic, data, total):
 
     AK.reset_launches()
     results = []
-    first_shape: dict = {}
+    captured: dict = {}
     with capture_kernel_args(AK) as seen:
         for name, make_q, tier, kernels in scan_shapes(E, 0):
             before = dict(AK.LAUNCHES)
+            n_seen = len(seen)
             out = run_shape(engine, make_q)
             moved = {k for k in AK.LAUNCHES if AK.LAUNCHES[k] > before[k]}
             if engine.last_serving_path != tier:
                 raise AssertionError(f"{name}: served by {engine.last_serving_path}: {engine.last_fallback_reasons}")
             if moved != kernels:
                 raise AssertionError(f"{name}: launched {moved}, expected {kernels}")
-            for k in moved:
-                first_shape.setdefault(k, name)
+            keep_captures(captured, name, seen[n_seen:])
             results.append((name, make_q, out))
     launches = dict(AK.LAUNCHES)
-    captured = {k: (first_shape[k], seen[k]) for k in KERNELS if k in seen}
     log(f"main path launches (scan and distinct shapes): {json.dumps(launches)}")
     if launches["block_compact"] == 0:
         raise AssertionError("block_compact was not launched on the scan path")
@@ -1116,7 +1257,8 @@ def k5_bench_phase(AK, dev):
         f"== numpy exactly; {ms:.4f} ms per dataset, "
         f"{BENCH_ROWS / ms * 1e3:.4g} rows/s"
     )
-    captured = {"filter_group_sum_count": ("the kernel bench", seen["filter_group_sum_count"])}
+    captured: dict = {}
+    keep_captures(captured, "kernel bench", seen)
     return launches, captured
 
 
@@ -1164,8 +1306,8 @@ def main() -> int:
     ):
         for k, n in more_launches.items():
             launches[k] += n
-        for k, v in more_captured.items():
-            captured.setdefault(k, v)
+        for (name, shape), args in more_captured.items():
+            keep_captures(captured, shape, [(name, args)])
     live_rows = {k: total for k in KERNELS}
     live_rows["filter_group_sum_count"] = BENCH_ROWS
     rows = main_path_kernels(AK, captured, errs, launches, live_rows)

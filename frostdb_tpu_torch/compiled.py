@@ -1753,9 +1753,13 @@ def _build_fused_program(structure):
             if vp_t[6]:  # unique: count VALID slots per group
                 passes.append((("u", vi), vvalid_planes[vi], 1))
         if not passes:
-            passes.append((None, torch.zeros_like(codes), 1))
+            # Nothing to sum (min/max only, distinct): a count-only pass
+            # reads no value plane.
+            passes.append((None, None, 1))
         for idx, (vi, vals, digits) in enumerate(passes):
-            s, c, f = sum_count(vals.to(torch.int32).contiguous(), digits)
+            if vals is not None:
+                vals = vals.to(torch.int32).contiguous()
+            s, c, f = sum_count(vals, digits)
             if idx == 0:
                 counts, first = c, f
             if isinstance(vi, tuple):

@@ -6,7 +6,7 @@ whole-query program (compiled.py) already computes per-code counts and
 first-occurrence order, and ``emit_output`` with an empty aggregation list
 emits exactly the distinct key rows in the generic Distinction's
 first-occurrence stream order (distinct.go; physeval.distinct_rows). On
-the device that is one sum/count kernel pass over a zero value plane: K2
+the device that is one count-only sum/count kernel pass (no value plane): K2
 (``group_sum_count``) over the selection plane, K1 where the filter is a
 band of range compares, K4 where it is one int ``==``/``!=``.
 

@@ -18,18 +18,18 @@ nothing.
 | ``filter_group_sum_count``    | ``pallas_filter_group_sum_count``      |
 | ``block_compact``             | ``pallas_block_compact``               |
 
-Bound on the card: memory bandwidth. Per row, the sum/count kernels read
-the code, the value and one predicate plane per clause (12 B/row for one
-plane, 13 B/row with the int8 base plane); min/max reads codes, values and
-the selection (12 B/row); block compaction reads the selection (4 B/row)
-and writes ``n_blocks x (1 + capb)`` int32. Their arithmetic is a handful
-of integer ops per row, far below the card's rate, so the bound is bytes /
-3.35 TB/s. The aggregation design reads each plane once, evaluates the
-predicate in registers (no selection plane is written), and keeps the
-per-code table in shared memory; only [K]-sized partials reach device
-memory. Its shared atomics keep it from that bound where a warp's rows
-share a code (compacted parts are sorted by label): see ``csrc/agg.cu`` and
-PERF.md.
+Bound on the card: memory bandwidth. The sum/count kernels read one
+predicate plane per clause (4 B/row, plus 1 B/row for the int8 base plane)
+and the code and value of each selected row (no value with ``values=None``,
+the count-only pass); min/max reads codes, values and the selection (12
+B/row); block compaction reads the selection (4 B/row) and writes
+``n_blocks x (1 + capb)`` int32. Their arithmetic is a handful of integer
+ops per row, far below the card's rate, so the bound is bytes / 3.35 TB/s.
+The sum/count design reads each plane once in 16-byte vectors, evaluates
+the predicate in registers (no selection plane is written), accumulates
+runs of equal codes in registers and writes them out warp-aggregated into
+per-code tables in shared memory; only [K]-sized partials reach device
+memory. See ``csrc/agg.cu`` and PERF.md.
 
 Contract differences from the Pallas entries: the third result of the
 sum/count kernels is the EXACT first selected row per code (INT32_MAX when
@@ -217,6 +217,12 @@ def _check_planes(named: Sequence[tuple[str, torch.Tensor, torch.dtype]]):
         raise ValueError(f"unsupported device {ref.device}")
 
 
+def _value_plane(values) -> list:
+    """The value plane's entry for ``_check_planes``; none for the
+    count-only pass (``values=None``)."""
+    return [] if values is None else [("values", values, torch.int32)]
+
+
 def _check_codes(num_codes: int) -> None:
     if not 1 <= int(num_codes) <= MAX_CODES:
         raise ValueError(f"num_codes must be in [1, {MAX_CODES}], got {num_codes}")
@@ -259,12 +265,15 @@ _CMP = {
 def _sum_count(codes, values, sel, num_codes: int, num_digits: int):
     """(sums, counts, first) over rows where the bool ``sel`` holds: the
     values masked to ``num_digits`` digits, rows with codes outside
-    ``[0, num_codes)`` dropped."""
+    ``[0, num_codes)`` dropped. With ``values=None`` the sums are 0."""
     c = codes.reshape(-1)
     s = sel.reshape(-1) & (c >= 0) & (c < num_codes)
-    v = (values.reshape(-1).to(torch.int64) & 0xFFFFFFFF) & _value_mask(
-        num_digits
-    )
+    if values is None:
+        v = torch.zeros_like(c, dtype=torch.int64)
+    else:
+        v = (values.reshape(-1).to(torch.int64) & 0xFFFFFFFF) & _value_mask(
+            num_digits
+        )
     sums, counts = fused.filter_group_scatter(c, v, s, num_codes)
     first = fused.first_selected_row(c, s, num_codes)
     return sums, counts, first
@@ -355,7 +364,7 @@ def _launch_sum_count(
             mode,
             n_cl,
             codes.data_ptr(),
-            values.data_ptr(),
+            values.data_ptr() if values is not None else 0,
             *ptrs,
             base8.data_ptr() if base8 is not None else 0,
             *ops,
@@ -408,10 +417,11 @@ def group_sum_count(codes, values, sel, num_codes: int, num_digits: int = 2):
     """Exact (sums[K] int64, counts[K] int64, first[K] int32) over rows
     with ``sel != 0``: ``first`` is the first selected row per code
     (INT32_MAX when absent). codes/values/sel: same-shape contiguous int32 planes; values
-    are summed masked to ``num_digits`` base-128 digits."""
+    are summed masked to ``num_digits`` base-128 digits. ``values=None``
+    counts only: no value plane is read and the sums are 0."""
     _check_planes(
-        [("codes", codes, torch.int32), ("values", values, torch.int32),
-         ("sel", sel, torch.int32)]
+        [("codes", codes, torch.int32), ("sel", sel, torch.int32)]
+        + _value_plane(values)
     )
     _check_codes(num_codes)
     _check_digits(num_digits)
@@ -429,7 +439,7 @@ def fused_band_group_sum_count(
 ):
     """Sums/counts/first over rows where every int32 ``planes[j] <op_j>
     literals[j]`` holds (1-3 clauses; ops <, <=, >, >=, ==), the predicate
-    evaluated in the kernel."""
+    evaluated in the kernel; ``values=None`` counts only."""
     planes = tuple(planes)
     cmp_ops = tuple(cmp_ops)
     if not 1 <= len(planes) <= 3 or len(planes) != len(cmp_ops):
@@ -441,7 +451,8 @@ def fused_band_group_sum_count(
             raise ValueError(f"band op {op!r}")
     lits = [_check_literal(l) for l in literals]
     _check_planes(
-        [("codes", codes, torch.int32), ("values", values, torch.int32)]
+        [("codes", codes, torch.int32)]
+        + _value_plane(values)
         + [(f"planes[{j}]", p, torch.int32) for j, p in enumerate(planes)]
     )
     _check_codes(num_codes)
@@ -462,13 +473,15 @@ def fused_cmp_group_sum_count(
     cmp_op: str,
 ):
     """Sums/counts/first over rows where ``base8 != 0`` and ``ts <op>
-    literal`` (op in <, <=, >, >=, ==, !=), evaluated in the kernel."""
+    literal`` (op in <, <=, >, >=, ==, !=), evaluated in the kernel;
+    ``values=None`` counts only."""
     if cmp_op not in _OPS:
         raise ValueError(f"compare op {cmp_op!r}")
     lit = _check_literal(literal)
     _check_planes(
-        [("codes", codes, torch.int32), ("values", values, torch.int32),
-         ("ts", ts, torch.int32), ("base8", base8, torch.int8)]
+        [("codes", codes, torch.int32), ("ts", ts, torch.int32),
+         ("base8", base8, torch.int8)]
+        + _value_plane(values)
     )
     _check_codes(num_codes)
     _check_digits(num_digits)

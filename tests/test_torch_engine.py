@@ -226,6 +226,44 @@ def test_directed_kernel_paths(directed, monkeypatch, case):
     assert generic == ref
 
 
+_COUNT_ONLY = {
+    "min_max": lambda E: lambda eng: eng.scan_table("t").filter(
+        E.Col("ts").gt_eq(300)
+    ).aggregate([E.Min(E.Col("v")), E.Max(E.Col("v"))], [E.Col("g")]),
+    "distinct": lambda E: lambda eng: eng.scan_table("t").distinct(E.Col("g")),
+    "distinct_band": lambda E: lambda eng: eng.scan_table("t").filter(
+        E.Col("ts").gt_eq(500)
+    ).distinct(E.Col("g"), E.Col("h")),
+    "distinct_bool_key": lambda E: lambda eng: eng.scan_table("t").distinct(
+        E.Col("h"), E.Col("ts").gt(400)
+    ),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_COUNT_ONLY))
+def test_count_only_pass_matches_jax(directed, monkeypatch, case):
+    """Queries with nothing to sum (min/max, distinct) run the sum/count
+    kernel as a count-only pass (no value plane) and give the JAX package's
+    rows, which its compiled tier computes over a zero value plane."""
+    jdb, pdb = directed
+    values_args = []
+    for name in ("group_sum_count", "fused_band_group_sum_count", "fused_cmp_group_sum_count"):
+        fn = getattr(AK, name)
+        monkeypatch.setattr(
+            AK, name,
+            lambda c, v, *a, _fn=fn: values_args.append(v) or _fn(c, v, *a),
+        )
+
+    def make_q(eng, E):
+        return _COUNT_ONLY[case](E)(eng)
+
+    ref, jpath = run_jax(jdb, make_q, compiled=True)
+    fast, path, reasons = run_port(pdb, make_q, compiled=True)
+    assert path == jpath, reasons
+    assert values_args and all(v is None for v in values_args)
+    assert fast == ref and len(ref) > 0
+
+
 def _pairwise(v):
     v = np.array(v, dtype=np.float64)
     s = 1

@@ -171,6 +171,123 @@ def test_band_vs_pallas(interpret, ops, lits, num_codes):
 
 
 # ---------------------------------------------------------------------------
+# K1 and K2 on the code layouts the CUDA template is designed for: sorted
+# runs (compacted parts are sorted by label), few codes, out-of-range codes
+# inside runs, a partial last block
+
+# Run lengths that cross the kernel's 4-row vectors, 32-lane warps and
+# 512-row block steps.
+_RUNS = (1, 3, 4, 5, 31, 32, 33, 511, 512, 513, 4099)
+_LAYOUTS = {
+    # layout: (num_codes, live rows of the 2 superblocks or None)
+    "uniform": (64, None),
+    "sorted_runs": (64, None),
+    "one_code": (64, None),
+    "two_random_codes": (2, None),
+    "out_of_range_in_runs": (64, None),
+    "partial_last_block": (64, 2 * ROWS_PER_SUPER - 3001),
+}
+
+
+def _layout_planes(layout, seed=21):
+    """codes, values, ts, sel as [slabs, 128] int32 planes of 2 superblocks
+    with codes in ``layout``; sel and ts past the live rows are unselected
+    (sel 0, ts -1)."""
+    num_codes, live = _LAYOUTS[layout]
+    rng = np.random.default_rng(seed)
+    n = 2 * ROWS_PER_SUPER
+    if layout in ("uniform", "two_random_codes"):
+        codes = rng.integers(0, num_codes, n)
+    elif layout == "one_code":
+        codes = np.full(n, num_codes - 1)
+    else:
+        lengths = np.resize(np.array(_RUNS), n)
+        lengths = lengths[: np.searchsorted(np.cumsum(lengths), n) + 1]
+        codes = np.repeat(rng.integers(0, num_codes, len(lengths)), lengths)[:n]
+        if layout == "out_of_range_in_runs":
+            bad = rng.random(n) < 0.05
+            junk = np.array([-1, num_codes, num_codes + 1000, I32_MIN])
+            codes = np.where(bad, junk[rng.integers(0, 4, n)], codes)
+    codes = codes.astype(np.int32)
+    values = rng.integers(0, 1 << 21, n).astype(np.int32)
+    ts = rng.integers(0, 100, n).astype(np.int32)
+    sel = (rng.random(n) < 0.6).astype(np.int32)
+    if live is not None:
+        sel[live:] = 0
+        ts[live:] = -1
+    return [a.reshape(-1, 128) for a in (codes, values, ts, sel)], num_codes
+
+
+def _first_exact(codes, sel, num_codes):
+    c = codes.reshape(-1)
+    s = (sel.reshape(-1) > 0) & (c >= 0) & (c < num_codes)
+    return JF.first_selected_row(jnp.asarray(c), jnp.asarray(s), num_codes)
+
+
+@pytest.mark.parametrize("layout", sorted(_LAYOUTS))
+def test_group_sum_count_layouts_vs_pallas(interpret, layout):
+    (c, v, _ts, s), k = _layout_planes(layout)
+    port = AK.group_sum_count(
+        torch.from_numpy(c), torch.from_numpy(v), torch.from_numpy(s), k, 3
+    )
+    pallas = PA.pallas_group_sum_count(
+        jnp.asarray(c), jnp.asarray(v), jnp.asarray(s), k, 3
+    )
+    _check_sum_count(port, pallas, _first_exact(c, s, k))
+
+
+@pytest.mark.parametrize("layout", sorted(_LAYOUTS))
+def test_band_layouts_vs_pallas(interpret, layout):
+    (c, v, ts, _s), k = _layout_planes(layout)
+    ops, lits = (">=", "<"), (20, 90)
+    port = AK.fused_band_group_sum_count(
+        torch.from_numpy(c), torch.from_numpy(v),
+        (torch.from_numpy(ts), torch.from_numpy(ts)), lits, k, 3, ops,
+    )
+    pallas = PA.pallas_fused_band_group_sum_count(
+        jnp.asarray(c), jnp.asarray(v), (jnp.asarray(ts), jnp.asarray(ts)),
+        tuple(jnp.asarray(l, jnp.int32) for l in lits), k, 3, ops,
+    )
+    sel = ((ts >= 20) & (ts < 90)).astype(np.int32)
+    _check_sum_count(port, pallas, _first_exact(c, sel, k))
+
+
+# The count-only pass (values=None) against the JAX package's kernels over a
+# zero value plane, as its compiled tier runs min/max and distinct queries.
+@pytest.mark.parametrize("kernel", ["group_sum_count", "band", "cmp8"])
+@pytest.mark.parametrize("layout", ["sorted_runs", "two_random_codes"])
+def test_count_only_vs_pallas_on_a_zero_plane(interpret, kernel, layout):
+    (c, _v, ts, s), k = _layout_planes(layout, seed=22)
+    b8 = (s != 0).astype(np.int8)
+    zero = np.zeros_like(c)
+    tc, tts = torch.from_numpy(c), torch.from_numpy(ts)
+    if kernel == "group_sum_count":
+        port = AK.group_sum_count(tc, None, torch.from_numpy(s), k)
+        pallas = PA.pallas_group_sum_count(
+            jnp.asarray(c), jnp.asarray(zero), jnp.asarray(s), k, 1
+        )
+        sel = s
+    elif kernel == "band":
+        port = AK.fused_band_group_sum_count(tc, None, (tts,), (30,), k, 1, (">=",))
+        pallas = PA.pallas_fused_band_group_sum_count(
+            jnp.asarray(c), jnp.asarray(zero), (jnp.asarray(ts),),
+            (jnp.asarray(30, jnp.int32),), k, 1, (">=",),
+        )
+        sel = (ts >= 30).astype(np.int32)
+    else:
+        port = AK.fused_cmp_group_sum_count(
+            tc, None, tts, torch.from_numpy(b8), 7, k, 1, "!="
+        )
+        pallas = PA.pallas_fused_cmp_group_sum_count(
+            jnp.asarray(c), jnp.asarray(zero), jnp.asarray(ts), jnp.asarray(b8),
+            jnp.asarray(7), k, 1, "!=",
+        )
+        sel = ((b8 != 0) & (ts != 7)).astype(np.int32)
+    assert port[0].dtype == torch.int64 and not port[0].any()
+    _check_sum_count(port, pallas, _first_exact(c, sel, k))
+
+
+# ---------------------------------------------------------------------------
 # K4: fused_cmp_group_sum_count vs pallas_fused_cmp_group_sum_count
 
 
