@@ -5,12 +5,13 @@
 
 Builds the CUDA kernels from frostdb_tpu_torch/csrc/ (one nvcc per source,
 all started together) and holds each kernel against its plain PyTorch
-version on the card (edge cases, exactly; for the sum/count kernels also
-the code layouts they are designed for: sorted runs across the vector,
-warp, block and grid-stride boundaries, one code, two random codes,
-out-of-range codes, ragged lengths, 2048 codes, unaligned planes, and the
-count-only pass). Then drives three paths, each with the launch counts set
-to 0 just before it and read just after:
+version on the card (edge cases, exactly; for the sum/count and min/max
+kernels also the code layouts they are designed for: sorted runs across
+the vector, warp, block and grid-stride boundaries, one code, two random
+codes, out-of-range codes, ragged lengths, 2048 codes, unaligned planes,
+the count-only pass, int32-extreme values, negative selection entries and
+min/max's second pass over a wide column). Then drives three paths, each
+with the launch counts set to 0 just before it and read just after:
 
 1. the aggregate shapes (slice 1): the engine's hot filter + group-by
    query shapes through LocalEngine on a 32 x 2^21-row table (the shape of
@@ -26,8 +27,9 @@ to 0 just before it and read just after:
    fused `ts >= literal` sum/count kernel, checked exactly against numpy.
 
 Last, each kernel is checked and timed on the inputs its path gave it
-(the sum/count kernels K1 and K2 on every shape that launches them),
-beside its plain version and a one-call PyTorch yardstick. Prints a
+(K1, K2 and K3 on every shape that launches them), beside its plain
+version, a one-call PyTorch yardstick and three bounds (padded rows, live
+rows, 32-byte sectors with a selected row). Prints a
 ``kernels`` JSON line and, last, an ``ok`` JSON line. Exits non-zero,
 printing no result, without a CUDA device or without the package beside
 it.
@@ -72,7 +74,7 @@ SLICE1_KERNELS = (
 )
 # Kernels captured and timed on every shape that launches them (the rest on
 # the first shape only).
-PER_SHAPE_KERNELS = ("fused_band_group_sum_count", "group_sum_count")
+PER_SHAPE_KERNELS = ("fused_band_group_sum_count", "group_sum_count", "group_min_max")
 
 # Position of num_codes among each wrapper's arguments.
 NUM_CODES_ARG = {
@@ -265,14 +267,32 @@ def sum_count_calls(codes, values, ts, sel, base8, k, nd, lit):
     return calls
 
 
+def min_max_calls(AK, codes, values, ts, sel, k):
+    """(name, wrapper args) of K3 on one input set: an int32 column, and the
+    second pass of a wide (two-plane) column, whose selection keeps the rows
+    whose high plane (``values``) equals their code's minimum, as the
+    compiled tier builds it (``sel * (hi == mn_hi[code])``)."""
+    import torch
+
+    mn_hi, _mx = AK.group_min_max_plain(codes, values, sel, k)
+    sel2 = sel * (values == mn_hi[codes.clamp(0, k - 1).long()]).to(torch.int32)
+    return [
+        ("group_min_max", (codes, values, sel, k)),
+        ("group_min_max", (codes, ts, sel2, k)),
+    ]
+
+
 def layout_edge_cases(AK, dev, errs) -> None:
-    """The sum/count kernels (K1, K2, K4, K5, and the count-only pass)
-    against their plain versions, exactly, on the code layouts they are
-    designed for: sorted runs of 1-513 rows and longer (crossing the 4-row
-    vector, the 32-lane warp, the block and the grid stride), one code over
-    all rows, 2 random codes, out-of-range codes inside runs, 2048 codes
-    (the shared block table), n not a multiple of 4, values whose masked
-    sums pass 2^32 in one run, and planes at a 4-byte offset (scalar loads)
+    """The sum/count kernels (K1, K2, K4, K5, and the count-only pass) and
+    the min/max kernel (K3, also on a wide column's second pass) against
+    their plain versions, exactly, on the code layouts they are designed
+    for: sorted runs of 1-513 rows and longer (crossing the 4-row vector,
+    the 32-lane warp, the block and the grid stride), one code over all
+    rows, 2 random codes, out-of-range codes inside runs, 2048 and 300
+    codes (the shared block table), n not a multiple of 4, values whose
+    masked sums pass 2^32 in one run (the shared sums' carry), values at
+    INT32_MIN and INT32_MAX, a selection plane holding negative values
+    (K3 selects only sel > 0), and planes at a 4-byte offset (scalar loads)
     and a 16-byte one (vector loads)."""
     import torch
 
@@ -290,23 +310,33 @@ def layout_edge_cases(AK, dev, errs) -> None:
         (n, 2048, "runs:7", 1 << 14, 3),
         (n, 300, "runs:513", 1 << 14, 2),
         (n, 256, "runs:33", 1 << 14, 2),
+        (n, 64, "runs:33", "int32 ends", 5),
+        (n, 64, "uniform", "negative sel", 2),
     ]
+    ends = torch.tensor([-(2**31), 2**31 - 1, -5, 0, 7], dtype=torch.int32, device=dev)
     checked = 0
     for i, (rows, k, layout, vmax, nd) in enumerate(cases):
         g = torch.Generator(device=dev).manual_seed(500 + i)
         codes = layout_codes(layout, rows, k, g, dev)
         if vmax == -1:
             values = torch.full((rows,), -1, dtype=torch.int32, device=dev)
+        elif vmax == "int32 ends":
+            values = ends[torch.randint(0, len(ends), (rows,), generator=g, device=dev)]
         else:
-            values = torch.randint(0, vmax, (rows,), generator=g, device=dev, dtype=torch.int64).to(torch.int32)
+            hi = vmax if isinstance(vmax, int) else 1 << 14
+            values = torch.randint(0, hi, (rows,), generator=g, device=dev, dtype=torch.int64).to(torch.int32)
         ts = torch.randint(0, 1000, (rows,), generator=g, device=dev, dtype=torch.int32)
-        sel = (torch.rand(rows, generator=g, device=dev) < 0.7).to(torch.int32)
+        if vmax == "negative sel":
+            sel = torch.randint(-3, 3, (rows,), generator=g, device=dev, dtype=torch.int32)
+        else:
+            sel = (torch.rand(rows, generator=g, device=dev) < 0.7).to(torch.int32)
         base8 = (torch.rand(rows, generator=g, device=dev) < 0.9).to(torch.int8)
         planes = [codes, values, ts, sel, base8]
-        offsets = (0, 1, 4) if layout == "runs:33" and k == 64 else (0,)
+        offsets = (0, 1, 4) if layout == "runs:33" and k == 64 and vmax == 1 << 14 else (0,)
         for off in offsets:
             x = [t[off:] for t in planes]
-            for name, args in sum_count_calls(*x, k, nd, 300):
+            calls = sum_count_calls(*x, k, nd, 300) + min_max_calls(AK, *x[:4], k)
+            for name, args in calls:
                 out = getattr(AK, name)(*args)
                 torch.cuda.synchronize()
                 e = max_abs_err(out, getattr(AK, name + "_plain")(*args))
@@ -314,10 +344,10 @@ def layout_edge_cases(AK, dev, errs) -> None:
                 checked += 1
                 if e:
                     raise AssertionError(
-                        f"{name} on {layout}, n={rows - off}, K={k}, offset {off} rows, "
+                        f"{name} on {layout} ({vmax}), n={rows - off}, K={k}, offset {off} rows, "
                         f"count only {args[1] is None}: max abs err {e}"
                     )
-    log(f"kernel layout cases: {checked} sum/count calls over {len(cases)} code layouts exact")
+    log(f"kernel layout cases: {checked} sum/count and min/max calls over {len(cases)} input sets exact")
 
 
 def kernel_phase(AK, dev, main_rows):
@@ -358,12 +388,13 @@ def kernel_phase(AK, dev, main_rows):
     )
     log(f"kernel edge cases: {len(cases)} input sets x {len(SLICE1_KERNELS)} kernels exact")
 
-    # Uniform random codes at the main path's row count (the main path's
-    # own inputs are timed by main_path_kernels).
+    # Uniform random codes at the main path's row count, the regime of hashed
+    # keys (the main path's own inputs are timed by main_path_kernels).
     for name, args in kernel_calls(x, NUM_CODES, 2, 500).items():
         wrapper = getattr(AK, name)
         log(
-            f"kernel {name}: {cuda_ms(lambda: wrapper(*args)):.4f} ms on "
+            f"kernel {name}: {chained_ms(lambda: wrapper(*args)):.4f} ms a call in "
+            f"a chain, {cuda_ms(lambda: wrapper(*args)):.4f} ms alone on "
             f"uniform random codes, {main_rows} rows, K={NUM_CODES}, "
             f"{int(_selection(name, args).sum())} rows selected"
         )
@@ -439,9 +470,15 @@ def main_path_kernels(AK, captured, errs, launches, live_rows):
     reads no other), plus the outputs; for block compaction the selection
     plane and the ``n_blocks x (1 + capb)`` output. ``bound_live_ms``
     counts the planes over ``live_rows[name]`` rows only, the bound once
-    parts are not padded. A count-only call (``values`` None) reads the
-    code of each selected row and no value. Every plane must be 16-byte
-    aligned, so the sum/count kernels take their vector loads."""
+    parts are not padded. ``bound_sector_ms`` counts the code and value
+    planes by the 32-byte sectors (8 rows) that hold a selected row, the
+    least the card can move for them: where selected rows come in runs (the
+    main path's sorted parts) it is ``bound_ms``, but where they are
+    scattered (K5's bench data selects half its rows at random, so nearly
+    every sector holds one) the card moves every sector of both planes and
+    ``bound_ms`` cannot be reached. A count-only call (``values`` None)
+    reads the code of each selected row and no value. Every plane must be
+    16-byte aligned, so the sum/count kernels take their vector loads."""
     import torch
 
     rows = []
@@ -467,7 +504,7 @@ def main_path_kernels(AK, captured, errs, launches, live_rows):
                 torch.nonzero(view)
                 view.sum(dim=1)
 
-            plane_bytes, row_bytes = n * sel.element_size(), 0
+            plane_bytes, row_bytes, sector_bytes = n * sel.element_size(), 0, 0
             what = f"capb={capb}"
         else:
             codes, values = args[0], args[1]
@@ -491,6 +528,7 @@ def main_path_kernels(AK, captured, errs, launches, live_rows):
 
             plane_bytes = sum(t.numel() * t.element_size() for t in _tensors(args[2:]))
             row_bytes = n_sel * (4 if values is None else 8)
+            sector_bytes = sum(32 * _sectors(live, t) for t in (codes, values) if t is not None)
             what = f"K={k}" + (", count only" if values is None else "")
         live_n = live_rows[name]
         ops_per_row = KERNELS[name][1]
@@ -500,6 +538,9 @@ def main_path_kernels(AK, captured, errs, launches, live_rows):
         live_ms = max(
             live_bytes / HBM_BYTES_PER_S * 1e3,
             live_n * ops_per_row / INT32_OPS_PER_S * 1e3,
+        )
+        sector_ms = max(
+            (plane_bytes + sector_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3, ops_ms
         )
         ms = chained_ms(lambda: wrapper(*args))
         call_ms = cuda_ms(lambda: wrapper(*args))
@@ -519,16 +560,29 @@ def main_path_kernels(AK, captured, errs, launches, live_rows):
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bound_live_ms": live_ms,
+            "bound_sector_ms": sector_ms,
             "library_ms": lib_ms,
         })
         log(
             f"kernel {name} on {shape}'s inputs: {ms:.4f} ms a call in a chain, "
             f"{call_ms:.4f} ms alone (plain {plain_ms:.4f} ms, "
             f"library {lib_ms:.4f} ms, bound {rows[-1]['bound_ms']:.4f} ms on "
-            f"{n} padded rows, {live_ms:.4f} ms on {live_n} live rows) "
+            f"{n} padded rows, {live_ms:.4f} ms on {live_n} live rows, "
+            f"{rows[-1]['bound_sector_ms']:.4f} ms by sectors) "
             f"with {n_sel} selected, {what}"
         )
     return rows
+
+
+def _sectors(live, plane) -> int:
+    """32-byte sectors of the int32 ``plane`` that hold a row where the
+    bool ``live`` is true (sectors counted from the plane's address)."""
+    import torch
+
+    lead = (plane.data_ptr() % 32) // plane.element_size()
+    m = torch.cat([live.new_zeros(lead), live.reshape(-1)])
+    m = torch.cat([m, m.new_zeros(-m.numel() % 8)])
+    return int(m.view(-1, 8).any(dim=1).sum())
 
 
 def _tensors(args):
@@ -1252,10 +1306,12 @@ def k5_bench_phase(AK, dev):
             AK.filter_group_sum_count(c, v, t, BENCH_LITERAL, NUM_CODES)
 
     ms = cuda_ms(sweep, reps=5, warm=1) / BENCH_DATASETS
+    chained = chained_ms(sweep, reps=5, warm=1) / BENCH_DATASETS
     log(
         f"kernel bench: {BENCH_DATASETS} datasets x {BENCH_ROWS} rows, dataset 7 "
-        f"== numpy exactly; {ms:.4f} ms per dataset, "
-        f"{BENCH_ROWS / ms * 1e3:.4g} rows/s"
+        f"== numpy exactly; {ms:.4f} ms per dataset in a sweep alone, "
+        f"{chained:.4f} ms per dataset in a chain of sweeps "
+        f"({BENCH_ROWS / chained * 1e3:.4g} rows/s)"
     )
     captured: dict = {}
     keep_captures(captured, "kernel bench", seen)

@@ -1,51 +1,56 @@
 // Fused filter + group-by aggregation kernels for Hopper (sm_90a).
 //
-// Counterparts of the Pallas kernels in frostdb_tpu/ops/pallas_agg.py:
-//   sum_count_kernel<kSel>      pallas_group_sum_count (K2)
-//   sum_count_kernel<kBand, n>  pallas_fused_band_group_sum_count (K1)
-//   sum_count_kernel<kCmp8>     pallas_fused_cmp_group_sum_count (K4)
-//   sum_count_kernel<kBand, 1, FIRST = false>
-//                               pallas_filter_group_sum_count (K5): one
-//                               `ts >= literal` clause, sums and counts only
-//                               (no first-row table)
-//   group_min_max_kernel        pallas_group_min_max (K3)
+// Counterparts of the Pallas kernels in frostdb_tpu/ops/pallas_agg.py, all
+// instantiations of one template, group_kernel<Acc, MODE, NCL, VEC>, by
+// accumulator (Acc) and predicate (MODE, NCL clauses):
+//   SumCount, kSel               pallas_group_sum_count (K2)
+//   SumCount, kBand              pallas_fused_band_group_sum_count (K1)
+//   SumCount, kCmp8              pallas_fused_cmp_group_sum_count (K4)
+//   SumCount without the first-row table, kBand with one `ts >= literal`
+//                                pallas_filter_group_sum_count (K5)
+//   MinMax, kPos (sel > 0)       pallas_group_min_max (K3)
 //
 // Inputs are flat int32 planes of n rows (the compiled layer's [slabs, 128]
 // planes, read contiguously); codes of selected rows lie in [0, num_codes),
 // num_codes <= 2048. Rows whose code falls outside that range contribute
 // nothing, as in the one-hot formulation.
 //
-// Bound on the card: memory. The sum/count kernel reads every predicate
-// plane once (4 B a row, 1 B for the int8 base plane of kCmp8) and the code
-// and value of each selected row; the per-code tables are a few KB. What
-// keeps a kernel from that bound is same-address contention: compacted
-// parts are sorted by label, so neighbouring rows share a code, and a key
-// such as `value > T` folds all rows into 2 codes. The design of the
-// sum/count template takes that away in four parts:
-//  1. Loads. A lane reads 4 neighbouring rows of each predicate plane as one
-//     16-byte vector, two vectors at a time, and turns them into a 4-bit
+// Bound on the card: memory. A kernel reads every predicate plane once (4 B
+// a row, 1 B for the int8 base plane of kCmp8) and the code and value of
+// each selected row; the per-code tables are a few KB. What keeps a kernel
+// from that bound is writing rows into the tables: on sorted parts all 32
+// lanes of a warp write the same code at once (compacted parts are sorted by
+// label), and on hashed codes (the newest unsorted part, bench.py's data)
+// every selected row is written on its own. The template:
+//  1. Loads. A lane reads neighbouring rows of each predicate plane as
+//     16-byte vectors of 4 rows, two vectors a step, and turns them into a
 //     selection mask in registers. It loads the code and value vectors only
-//     where a row of the vector is selected. A count-only instantiation
-//     (no value plane: the distincts and min/max's count pass) reads no
-//     values. Planes that are not 16-byte aligned (the int8 plane: 4-byte)
-//     take the same kernel with scalar loads.
-//  2. Runs in registers. A lane keeps (code, count, sum, first row) of its
-//     current run of equal codes and writes it out only when the code
-//     changes, and once at the end. A lane visits its rows in increasing
-//     order, so a run's first row is its first selected row.
-//  3. Warp-aggregated write-out. When lanes write out in the same step and
-//     the first of them shares its code with others (runs that end
-//     together on sorted parts, a key of two codes), that code's lanes
-//     reduce count, first row and sum across the warp (__reduce_add_sync,
-//     __reduce_min_sync; the 64-bit sum as three 32-bit partial sums of
-//     bits 0-15, 16-31 and 32-63, none of which can overflow) and one lane
-//     writes the entry. The other lanes (codes that differ lane to lane,
-//     as in hashed keys) add their own runs with shared atomics.
-//  4. Tables sized by num_codes (dynamic shared memory, 16 B a code). Up
-//     to 256 codes each warp owns a table, so warps never contend; the
-//     block merges its warps' tables at the end. Above 256 codes the block
-//     shares one table. Each block then adds its non-empty entries to the
-//     outputs with global atomics.
+//     where a row of the vector is selected. A count-only instantiation (no
+//     value plane: the distincts and min/max's count pass) reads no values.
+//     Planes that are not 16-byte aligned (the int8 plane: 4-byte) take the
+//     same kernel with scalar loads. Every load is streaming (__ldcs: each
+//     byte is read once). Warps take their vectors grid-strided, so every
+//     warp sees the same mix of selected and padding rows (a contiguous
+//     chunk a warp was slower: warps in selected runs wait on more loads).
+//  2. Runs in registers. A lane keeps its current run of equal codes (code
+//     and count, sum and first row; or min and max) and writes it out only
+//     when the code changes, and once at the end. A lane visits its rows in
+//     increasing order, so a run's first row is its first selected row.
+//  3. Write-out with native 32-bit shared atomics, each lane on its own: no
+//     ballot, shuffle or warp reduction, so no lane waits for another. A
+//     64-bit shared atomicAdd is a compare-and-swap loop on the card, which
+//     32 lanes writing one code (sorted parts) turn into a retry storm, so a
+//     sum goes to two 32-bit words: its low word, then its high word and the
+//     carry out of the low one where either is not 0. Same-address 32-bit
+//     atomics the card serializes in hardware; measured against a warp-wide
+//     reduction of the shared code before the write (PERF.md), the plain
+//     per-lane write-out was as fast on sorted parts and faster on hashed
+//     and two-code keys, for sums and for min/max alike.
+//  4. Tables sized by num_codes (dynamic shared memory; 16 B a code for
+//     sums, counts and first rows, 8 B for min and max). Up to 256 codes
+//     each warp owns a table, so warps never contend; above, the block
+//     shares one. Each block then merges its tables and adds its non-empty
+//     entries to the outputs with global atomics.
 // All accumulation is in integers, so results are bit-exact whatever the
 // order of the writes. Sums and counts are int64; the first selected row is
 // the exact row index (not a superblock).
@@ -58,23 +63,20 @@
 namespace {
 
 constexpr int kMaxCodes = 2048;
-constexpr int kThreads = 512;      // group_min_max_kernel
-constexpr int kBlocksPerSm = 4;    // group_min_max_kernel
-constexpr int kSumThreads = 256;   // sum_count_kernel
-constexpr int kSumWarps = kSumThreads / 32;
-constexpr int kSumMinBlocks = 4;   // blocks an SM holds: 64 registers a thread
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 4;      // blocks an SM holds: 64 registers a thread
 constexpr int kUnroll = 2;         // vectors a lane loads per step
 constexpr int kWarpTableCodes = 256;
 constexpr int kInt32Max = 0x7fffffff;
 constexpr int kInt32Min = -0x7fffffff - 1;
-constexpr unsigned kFull = 0xffffffffu;
 
-enum Mode { kSel = 0, kBand = 1, kCmp8 = 2 };
+enum Mode { kSel = 0, kBand = 1, kCmp8 = 2, kPos = 3 };
 
 // Each compare clause is a range test, lo <= x <= hi, negated for kCmp8's
 // `!=` (inv = 1). An empty range has lo = INT32_MAX, hi = INT32_MIN.
 struct Pred {
-  const int* p0;      // kSel: 0/1 selection; kBand: clause 0; kCmp8: compare plane
+  const int* p0;      // kSel: sel != 0; kPos: sel > 0; kBand: clause 0; kCmp8: compare plane
   const int* p1;      // kBand: clause 1
   const int* p2;      // kBand: clause 2
   const int8_t* b8;   // kCmp8: base-validity plane
@@ -86,13 +88,13 @@ struct Pred {
 template <int VEC>
 __device__ __forceinline__ void load_vec(const int* p, long long q, int (&x)[VEC]) {
   if constexpr (VEC == 4) {
-    const int4 t = __ldg(reinterpret_cast<const int4*>(p) + q);
+    const int4 t = __ldcs(reinterpret_cast<const int4*>(p) + q);
     x[0] = t.x;
     x[1] = t.y;
     x[2] = t.z;
     x[3] = t.w;
   } else {
-    x[0] = __ldg(p + q);
+    x[0] = __ldcs(p + q);
   }
 }
 
@@ -100,11 +102,11 @@ __device__ __forceinline__ void load_vec(const int* p, long long q, int (&x)[VEC
 template <int VEC>
 __device__ __forceinline__ unsigned nonzero8(const int8_t* p, long long q) {
   if constexpr (VEC == 4) {
-    const unsigned t = __ldg(reinterpret_cast<const unsigned*>(p) + q);
+    const unsigned t = __ldcs(reinterpret_cast<const unsigned*>(p) + q);
     return (t & 0xffu ? 1u : 0u) | (t & 0xff00u ? 2u : 0u) |
            (t & 0xff0000u ? 4u : 0u) | (t & 0xff000000u ? 8u : 0u);
   } else {
-    return __ldg(p + q) != 0 ? 1u : 0u;
+    return __ldcs(p + q) != 0 ? 1u : 0u;
   }
 }
 
@@ -122,12 +124,12 @@ __device__ __forceinline__ unsigned in_range(const int* p, long long q, int lo, 
 template <int MODE, int NCL, int VEC>
 __device__ __forceinline__ unsigned sel_mask(const Pred& p, long long q) {
   constexpr unsigned kAll = (1u << VEC) - 1u;
-  if (MODE == kSel) {
+  if (MODE == kSel || MODE == kPos) {
     int x[VEC];
     load_vec<VEC>(p.p0, q, x);
     unsigned m = 0;
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) m |= (unsigned)(x[j] != 0) << j;
+    for (int j = 0; j < VEC; ++j) m |= (unsigned)(MODE == kSel ? x[j] != 0 : x[j] > 0) << j;
     return m;
   }
   unsigned m = in_range<VEC>(p.p0, q, p.lo0, p.hi0);
@@ -137,117 +139,195 @@ __device__ __forceinline__ unsigned sel_mask(const Pred& p, long long q) {
   return m;
 }
 
-// A lane's current run of equal codes.
-struct Run {
-  int code;
-  unsigned cnt;
-  unsigned long long sum;
-  int first;
-};
+// Tables an accumulator keeps for num_codes codes: one per warp, or one
+// per block above kWarpTableCodes codes.
+__host__ __device__ int tables(int num_codes) {
+  return num_codes <= kWarpTableCodes ? kWarps : 1;
+}
 
-// The per-code table a warp writes its runs to: its own (up to
-// kWarpTableCodes codes) or its block's.
-struct Table {
-  unsigned long long* sum;
-  unsigned* cnt;
+// Offset of this lane's table among tables(num_codes).
+__device__ int table_base(int num_codes) {
+  return tables(num_codes) > 1 ? (int)(threadIdx.x >> 5) * num_codes : 0;
+}
+
+struct SumOut {
+  unsigned long long* sums;
+  unsigned long long* counts;
   int* first;
 };
 
+// Sums, counts and first selected rows. FIRST = false drops the first-row
+// table (K5 has no first-row output); VALS = false drops the value plane
+// (sums stay 0). A table entry is the sum's low and high words, the count
+// and the first row.
 template <bool FIRST, bool VALS>
-__device__ __forceinline__ void add_run(const Table& t, int c, unsigned long long sum,
-                                        unsigned cnt, int first) {
-  if (VALS) atomicAdd(t.sum + c, sum);
-  atomicAdd(t.cnt + c, cnt);
-  if (FIRST) atomicMin(t.first + c, first);
-}
+struct SumCount {
+  using Out = SumOut;
+  static constexpr bool kVals = VALS;
+  __host__ __device__ static size_t smem_bytes(int num_codes) {
+    return (size_t)tables(num_codes) * num_codes * 4 * sizeof(unsigned);
+  }
 
-// Warp-collective: the lanes with `go` (`pending`, their ballot) write
-// their runs out and start empty runs. If the first of them shares its code
-// with another (the runs that end together on sorted parts, a key of few
-// codes) or is alone, the lanes of that code are reduced across the warp
-// and written once by the first; the reductions run over the whole warp,
-// other lanes adding 0, so the warp never splits by code. Every other lane
-// writes its own run (codes that differ lane to lane).
-template <bool FIRST, bool VALS>
-__device__ __forceinline__ void flush(bool go, unsigned pending, Run& r,
-                                      const Table& t) {
-  const int src = __ffs(pending) - 1;
-  const int code = __shfl_sync(kFull, r.code, src);
-  const bool in = go && r.code == code;
-  const unsigned grp = __ballot_sync(kFull, in);
-  bool own = go;  // still to write its own run
-  if (grp == pending || __popc(grp) > 1) {
-    const unsigned cnt = __reduce_add_sync(kFull, in ? r.cnt : 0u);
-    unsigned long long sum = 0;
+  unsigned* s_lo;  // the lane's table
+  unsigned* s_hi;
+  unsigned* s_cnt;
+  int* s_first;
+  unsigned vmask;
+  int code = 0;  // the lane's run
+  unsigned cnt = 0;
+  unsigned long long sum = 0;
+  int first = kInt32Max;
+
+  // Block-wide: fills the block's tables.
+  __device__ SumCount(unsigned* smem, int num_codes, unsigned vm) : vmask(vm) {
+    const int entries = tables(num_codes) * num_codes;
+    s_lo = smem;
+    s_hi = s_lo + entries;
+    s_cnt = s_hi + entries;
+    s_first = reinterpret_cast<int*>(s_cnt + entries);
+    for (int k = threadIdx.x; k < entries; k += kThreads) {
+      s_lo[k] = 0u;
+      s_hi[k] = 0u;
+      s_cnt[k] = 0u;
+      s_first[k] = kInt32Max;
+    }
+    const int b = table_base(num_codes);
+    s_lo += b;
+    s_hi += b;
+    s_cnt += b;
+    s_first += b;
+  }
+  __device__ bool live() const { return cnt != 0; }
+  __device__ void add(int c, int v, int row) {
+    if (cnt == 0) {
+      code = c;
+      if (FIRST) first = row;
+    }
+    cnt += 1;
+    if (VALS) sum += (unsigned)v & vmask;
+  }
+  __device__ void write() {
     if (VALS) {
-      const unsigned long long x = in ? r.sum : 0ULL;
-      const unsigned b0 = __reduce_add_sync(kFull, (unsigned)x & 0xffffu);
-      const unsigned b1 = __reduce_add_sync(kFull, (unsigned)(x >> 16) & 0xffffu);
-      const unsigned b2 = __reduce_add_sync(kFull, (unsigned)(x >> 32));
-      sum = (unsigned long long)b0 + ((unsigned long long)b1 << 16) +
-            ((unsigned long long)b2 << 32);
+      const unsigned lo = (unsigned)sum;
+      const unsigned old = atomicAdd(s_lo + code, lo);
+      const unsigned hi = (unsigned)(sum >> 32) + (old + lo < old ? 1u : 0u);
+      if (hi != 0u) atomicAdd(s_hi + code, hi);
     }
-    const int first = FIRST ? __reduce_min_sync(kFull, in ? r.first : kInt32Max) : 0;
-    if ((int)(threadIdx.x & 31) == src) add_run<FIRST, VALS>(t, code, sum, cnt, first);
-    own = go && !in;
+    atomicAdd(s_cnt + code, cnt);
+    if (FIRST) atomicMin(s_first + code, first);
+    cnt = 0;
+    sum = 0;
   }
-  if (own) add_run<FIRST, VALS>(t, r.code, r.sum, r.cnt, r.first);
-  if (go) {
-    r.cnt = 0;
-    r.sum = 0;
+  // Block-wide, after the block's last write: the tables to the outputs.
+  __device__ static void merge(const unsigned* smem, int num_codes, const Out& out) {
+    const int n_tables = tables(num_codes);
+    const int entries = n_tables * num_codes;
+    const unsigned* t_lo = smem;
+    const unsigned* t_hi = t_lo + entries;
+    const unsigned* t_cnt = t_hi + entries;
+    const int* t_first = reinterpret_cast<const int*>(t_cnt + entries);
+    for (int k = threadIdx.x; k < num_codes; k += kThreads) {
+      unsigned long long s = 0ULL, n = 0ULL;
+      int f = kInt32Max;
+      for (int w = 0; w < n_tables; ++w) {
+        const int i = w * num_codes + k;
+        if (VALS) s += (unsigned long long)t_hi[i] << 32 | t_lo[i];
+        n += t_cnt[i];
+        if (FIRST) f = min(f, t_first[i]);
+      }
+      if (n != 0ULL) {
+        if (VALS) atomicAdd(&out.sums[k], s);
+        atomicAdd(&out.counts[k], n);
+        if (FIRST) atomicMin(&out.first[k], f);
+      }
+    }
   }
+};
+
+struct MinMaxOut {
+  int* mins;
+  int* maxs;
+};
+
+// Min and max. A run is empty while mn > mx.
+struct MinMax {
+  using Out = MinMaxOut;
+  static constexpr bool kVals = true;
+  __host__ __device__ static size_t smem_bytes(int num_codes) {
+    return (size_t)tables(num_codes) * num_codes * 2 * sizeof(int);
+  }
+
+  int* s_min;  // the lane's table
+  int* s_max;
+  int code = 0;  // the lane's run
+  int mn = kInt32Max;
+  int mx = kInt32Min;
+
+  __device__ MinMax(unsigned* smem, int num_codes, unsigned) {
+    const int entries = tables(num_codes) * num_codes;
+    s_min = reinterpret_cast<int*>(smem);
+    s_max = s_min + entries;
+    for (int k = threadIdx.x; k < entries; k += kThreads) {
+      s_min[k] = kInt32Max;
+      s_max[k] = kInt32Min;
+    }
+    const int b = table_base(num_codes);
+    s_min += b;
+    s_max += b;
+  }
+  __device__ bool live() const { return mn <= mx; }
+  __device__ void add(int c, int v, int) {
+    if (mn > mx) code = c;
+    mn = min(mn, v);
+    mx = max(mx, v);
+  }
+  __device__ void write() {
+    atomicMin(s_min + code, mn);
+    atomicMax(s_max + code, mx);
+    mn = kInt32Max;
+    mx = kInt32Min;
+  }
+  __device__ static void merge(const unsigned* smem, int num_codes, const Out& out) {
+    const int n_tables = tables(num_codes);
+    const int* t_min = reinterpret_cast<const int*>(smem);
+    const int* t_max = t_min + n_tables * num_codes;
+    for (int k = threadIdx.x; k < num_codes; k += kThreads) {
+      int a = kInt32Max, b = kInt32Min;
+      for (int w = 0; w < n_tables; ++w) {
+        a = min(a, t_min[w * num_codes + k]);
+        b = max(b, t_max[w * num_codes + k]);
+      }
+      if (a != kInt32Max) atomicMin(&out.mins[k], a);
+      if (b != kInt32Min) atomicMax(&out.maxs[k], b);
+    }
+  }
+};
+
+// One row of a lane (`take`: selected, code in range): a new code writes
+// the lane's run out first.
+template <class A>
+__device__ __forceinline__ void step(A& a, bool take, int c, int v, int row) {
+  if (!take) return;
+  if (a.live() && c != a.code) a.write();
+  a.add(c, v, row);
 }
 
-// Warp-collective: one row a lane (`take`: selected, code in range).
-template <bool FIRST, bool VALS>
-__device__ __forceinline__ void step(bool take, int c, unsigned v, int row,
-                                     Run& r, const Table& t) {
-  const bool go = take && r.cnt != 0 && c != r.code;
-  const unsigned pending = __ballot_sync(kFull, go);
-  if (pending) flush<FIRST, VALS>(go, pending, r, t);
-  if (take) {
-    if (r.cnt == 0) {
-      r.code = c;
-      if (FIRST) r.first = row;
-    }
-    r.cnt += 1;
-    if (VALS) r.sum += v;
-  }
-}
-
-// FIRST = false drops the first-row table (K5 has no first-row output);
-// VALS = false drops the value plane (sums stay 0). `tables` is kSumWarps
-// (a table per warp) or 1 (one per block); dynamic shared memory holds
-// tables * num_codes entries of 16 bytes.
-template <int MODE, int NCL, bool FIRST, bool VALS, int VEC>
-__global__ void __launch_bounds__(kSumThreads, kSumMinBlocks) sum_count_kernel(
+// Dynamic shared memory holds Acc's tables (Acc::smem_bytes(num_codes)).
+template <class A, int MODE, int NCL, int VEC>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) group_kernel(
     const int* __restrict__ codes, const int* __restrict__ values, Pred pred,
-    long long n, int num_codes, unsigned int vmask, int tables,
-    unsigned long long* __restrict__ sums,
-    unsigned long long* __restrict__ counts, int* __restrict__ first) {
-  extern __shared__ unsigned long long s_sum[];
-  const int entries = tables * num_codes;
-  unsigned* s_cnt = reinterpret_cast<unsigned*>(s_sum + entries);
-  int* s_first = reinterpret_cast<int*>(s_cnt + entries);
-  for (int k = threadIdx.x; k < entries; k += kSumThreads) {
-    s_sum[k] = 0ULL;
-    s_cnt[k] = 0u;
-    s_first[k] = kInt32Max;
-  }
+    long long n, int num_codes, unsigned int vmask, typename A::Out out) {
+  extern __shared__ unsigned smem[];
+  A a(smem, num_codes, vmask);
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int base = tables > 1 ? warp * num_codes : 0;
-  const Table t = {s_sum + base, s_cnt + base, s_first + base};
-  Run r = {0, 0u, 0ULL, kInt32Max};
-
-  // A warp takes 32 * kUnroll neighbouring vectors a step; the loop bound is
-  // the same for its lanes, so the warp-collective steps see all 32.
+  // A warp takes 32 * kUnroll neighbouring vectors a step.
   const long long nvec = n / VEC;
   constexpr long long kSpan = 32LL * kUnroll;
-  const long long stride = (long long)gridDim.x * kSumWarps * kSpan;
-  for (long long q0 = ((long long)blockIdx.x * kSumWarps + warp) * kSpan;
+  const long long stride = (long long)gridDim.x * kWarps * kSpan;
+  for (long long q0 = ((long long)blockIdx.x * kWarps + warp) * kSpan;
        q0 < nvec; q0 += stride) {
     unsigned m[kUnroll];
     int c[kUnroll][VEC];
@@ -264,7 +344,7 @@ __global__ void __launch_bounds__(kSumThreads, kSumMinBlocks) sum_count_kernel(
       if (m[u]) {
         const long long q = q0 + u * 32 + lane;
         load_vec<VEC>(codes, q, c[u]);
-        if (VALS) load_vec<VEC>(values, q, v[u]);
+        if (A::kVals) load_vec<VEC>(values, q, v[u]);
       }
     }
 #pragma unroll
@@ -274,79 +354,21 @@ __global__ void __launch_bounds__(kSumThreads, kSumMinBlocks) sum_count_kernel(
       for (int j = 0; j < VEC; ++j) {
         const bool take =
             ((m[u] >> j) & 1u) && (unsigned)c[u][j] < (unsigned)num_codes;
-        step<FIRST, VALS>(take, c[u][j], (unsigned)v[u][j] & vmask, row0 + j, r, t);
+        step(a, take, c[u][j], v[u][j], row0 + j);
       }
     }
   }
-  // The last n % VEC rows: one step of block 0's first warp.
+  // The last n % VEC rows: block 0's first warp, a row a lane.
   if (VEC > 1 && blockIdx.x == 0 && warp == 0) {
     const long long row = nvec * VEC + lane;
-    bool take = false;
-    int c = 0;
-    unsigned v = 0;
     if (row < n && sel_mask<MODE, NCL, 1>(pred, row)) {
-      c = codes[row];
-      if (VALS) v = (unsigned)values[row] & vmask;
-      take = (unsigned)c < (unsigned)num_codes;
-    }
-    step<FIRST, VALS>(take, c, v, (int)row, r, t);
-  }
-  const bool go = r.cnt != 0;
-  const unsigned pending = __ballot_sync(kFull, go);
-  if (pending) flush<FIRST, VALS>(go, pending, r, t);
-  __syncthreads();
-
-  for (int k = threadIdx.x; k < num_codes; k += kSumThreads) {
-    unsigned long long s = 0ULL, cnt = 0ULL;
-    int f = kInt32Max;
-    for (int w = 0; w < tables; ++w) {
-      const int i = w * num_codes + k;
-      if (VALS) s += s_sum[i];
-      cnt += s_cnt[i];
-      if (FIRST) f = min(f, s_first[i]);
-    }
-    if (cnt != 0ULL) {
-      if (VALS) atomicAdd(&sums[k], s);
-      atomicAdd(&counts[k], cnt);
-      if (FIRST) atomicMin(&first[k], f);
+      const int c = codes[row];
+      step(a, (unsigned)c < (unsigned)num_codes, c, A::kVals ? values[row] : 0, (int)row);
     }
   }
-}
-
-__global__ void __launch_bounds__(kThreads) group_min_max_kernel(
-    const int* __restrict__ codes, const int* __restrict__ values,
-    const int* __restrict__ sel, long long n, int num_codes,
-    int* __restrict__ mins, int* __restrict__ maxs) {
-  __shared__ int s_min[kMaxCodes];
-  __shared__ int s_max[kMaxCodes];
-  for (int k = threadIdx.x; k < num_codes; k += blockDim.x) {
-    s_min[k] = kInt32Max;
-    s_max[k] = kInt32Min;
-  }
+  if (a.live()) a.write();
   __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    if (sel[i] <= 0) continue;
-    const int c = codes[i];
-    if ((unsigned)c >= (unsigned)num_codes) continue;
-    const int v = values[i];
-    atomicMin(&s_min[c], v);
-    atomicMax(&s_max[c], v);
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < num_codes; k += blockDim.x) {
-    if (s_min[k] != kInt32Max) atomicMin(&mins[k], s_min[k]);
-    if (s_max[k] != kInt32Min) atomicMax(&maxs[k], s_max[k]);
-  }
-}
-
-unsigned int grid_size(long long n, int num_sms) {
-  long long blocks = (n + kThreads - 1) / kThreads;
-  long long cap = (long long)num_sms * kBlocksPerSm;
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  return (unsigned int)blocks;
+  A::merge(smem, num_codes, out);
 }
 
 // Clause `x <op> lit` (op codes: 0 <, 1 <=, 2 >, 3 >=, 4 ==, 5 !=) as a
@@ -375,54 +397,47 @@ bool aligned(const void* p, uintptr_t bytes) {
   return p == nullptr || ((uintptr_t)p & (bytes - 1)) == 0;
 }
 
-template <int MODE, int NCL, bool FIRST, bool VALS, int VEC>
-int launch_vec(const int* codes, const int* values, const Pred& p, long long n,
-               int num_codes, unsigned vmask, unsigned long long* sums,
-               unsigned long long* counts, int* first, int num_sms,
-               cudaStream_t stream) {
-  const int tables = num_codes <= kWarpTableCodes ? kSumWarps : 1;
-  const size_t smem = (size_t)tables * num_codes *
-                      (sizeof(unsigned long long) + sizeof(unsigned) + sizeof(int));
-  // kSumMinBlocks blocks fit an SM: registers by the launch bounds, shared
+struct Job {
+  const int* codes;
+  const int* values;  // null: count only
+  Pred pred;
+  long long n;
+  int num_codes;
+  unsigned vmask;
+  int num_sms;
+  cudaStream_t stream;
+};
+
+template <class A, int MODE, int NCL, int VEC>
+int launch_vec(const Job& j, const typename A::Out& out) {
+  // kMinBlocks blocks fit an SM: registers by the launch bounds, shared
   // memory (at most 32 KB a block) by far.
-  const long long rows_per_block = (long long)kSumThreads * kUnroll * VEC;
-  long long blocks = (n + rows_per_block - 1) / rows_per_block;
-  const long long cap = (long long)num_sms * kSumMinBlocks;
+  const long long rows_per_block = (long long)kThreads * kUnroll * VEC;
+  long long blocks = (j.n + rows_per_block - 1) / rows_per_block;
+  const long long cap = (long long)j.num_sms * kMinBlocks;
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
-  sum_count_kernel<MODE, NCL, FIRST, VALS, VEC>
-      <<<dim3((unsigned)blocks), kSumThreads, smem, stream>>>(
-          codes, values, p, n, num_codes, vmask, tables, sums, counts, first);
+  group_kernel<A, MODE, NCL, VEC>
+      <<<dim3((unsigned)blocks), kThreads, A::smem_bytes(j.num_codes), j.stream>>>(
+          j.codes, j.values, j.pred, j.n, j.num_codes, j.vmask, out);
   return (int)cudaGetLastError();
 }
 
 // 16-byte vectors where every plane allows them (the int8 plane: 4 bytes),
 // scalar loads otherwise.
-template <int MODE, int NCL, bool FIRST, bool VALS>
-int launch_sum_count(const int* codes, const int* values, const Pred& p,
-                     long long n, int num_codes, unsigned vmask,
-                     unsigned long long* sums, unsigned long long* counts,
-                     int* first, int num_sms, cudaStream_t stream) {
-  const bool vec = aligned(codes, 16) && aligned(values, 16) &&
-                   aligned(p.p0, 16) && aligned(p.p1, 16) &&
-                   aligned(p.p2, 16) && aligned(p.b8, 4);
-  if (vec)
-    return launch_vec<MODE, NCL, FIRST, VALS, 4>(
-        codes, values, p, n, num_codes, vmask, sums, counts, first, num_sms, stream);
-  return launch_vec<MODE, NCL, FIRST, VALS, 1>(
-      codes, values, p, n, num_codes, vmask, sums, counts, first, num_sms, stream);
+template <class A, int MODE, int NCL>
+int launch(const Job& j, const typename A::Out& out) {
+  const bool vec = aligned(j.codes, 16) && aligned(j.values, 16) &&
+                   aligned(j.pred.p0, 16) && aligned(j.pred.p1, 16) &&
+                   aligned(j.pred.p2, 16) && aligned(j.pred.b8, 4);
+  if (vec) return launch_vec<A, MODE, NCL, 4>(j, out);
+  return launch_vec<A, MODE, NCL, 1>(j, out);
 }
 
 template <int MODE, int NCL>
-int launch_first(const int* codes, const int* values, const Pred& p,
-                 long long n, int num_codes, unsigned vmask,
-                 unsigned long long* sums, unsigned long long* counts,
-                 int* first, int num_sms, cudaStream_t stream) {
-  if (values == nullptr)
-    return launch_sum_count<MODE, NCL, true, false>(
-        codes, values, p, n, num_codes, vmask, sums, counts, first, num_sms, stream);
-  return launch_sum_count<MODE, NCL, true, true>(
-      codes, values, p, n, num_codes, vmask, sums, counts, first, num_sms, stream);
+int launch_first(const Job& j, const SumOut& out) {
+  if (j.values == nullptr) return launch<SumCount<true, false>, MODE, NCL>(j, out);
+  return launch<SumCount<true, true>, MODE, NCL>(j, out);
 }
 
 }  // namespace
@@ -448,22 +463,14 @@ extern "C" int fdb_group_sum_count(
     set_clause(op1, lit1, &p.lo1, &p.hi1, nullptr);
     set_clause(op2, lit2, &p.lo2, &p.hi2, nullptr);
   }
-  const int* c = (const int*)codes;
-  const int* v = (const int*)values;
-  unsigned long long* su = (unsigned long long*)sums;
-  unsigned long long* cu = (unsigned long long*)counts;
-  int* fi = (int*)first;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (mode == kSel)
-    return launch_first<kSel, 1>(c, v, p, n, num_codes, vmask, su, cu, fi, num_sms, s);
-  if (mode == kBand && n_cl == 1)
-    return launch_first<kBand, 1>(c, v, p, n, num_codes, vmask, su, cu, fi, num_sms, s);
-  if (mode == kBand && n_cl == 2)
-    return launch_first<kBand, 2>(c, v, p, n, num_codes, vmask, su, cu, fi, num_sms, s);
-  if (mode == kBand && n_cl == 3)
-    return launch_first<kBand, 3>(c, v, p, n, num_codes, vmask, su, cu, fi, num_sms, s);
-  if (mode == kCmp8)
-    return launch_first<kCmp8, 1>(c, v, p, n, num_codes, vmask, su, cu, fi, num_sms, s);
+  const Job j = {(const int*)codes, (const int*)values, p, n, num_codes, vmask,
+                 num_sms, (cudaStream_t)stream};
+  const SumOut out = {(unsigned long long*)sums, (unsigned long long*)counts, (int*)first};
+  if (mode == kSel) return launch_first<kSel, 1>(j, out);
+  if (mode == kBand && n_cl == 1) return launch_first<kBand, 1>(j, out);
+  if (mode == kBand && n_cl == 2) return launch_first<kBand, 2>(j, out);
+  if (mode == kBand && n_cl == 3) return launch_first<kBand, 3>(j, out);
+  if (mode == kCmp8) return launch_first<kCmp8, 1>(j, out);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -478,10 +485,10 @@ extern "C" int fdb_filter_group_sum_count(
   Pred p = {};
   p.p0 = (const int*)ts;
   set_clause(3, lit, &p.lo0, &p.hi0, nullptr);  // >=
-  return launch_sum_count<kBand, 1, false, true>(
-      (const int*)codes, (const int*)values, p, n, num_codes, vmask,
-      (unsigned long long*)sums, (unsigned long long*)counts, nullptr, num_sms,
-      (cudaStream_t)stream);
+  const Job j = {(const int*)codes, (const int*)values, p, n, num_codes, vmask,
+                 num_sms, (cudaStream_t)stream};
+  const SumOut out = {(unsigned long long*)sums, (unsigned long long*)counts, nullptr};
+  return launch<SumCount<false, true>, kBand, 1>(j, out);
 }
 
 // Min and max per code over rows with sel > 0. The caller fills mins with
@@ -492,9 +499,9 @@ extern "C" int fdb_group_min_max(const void* codes, const void* values,
                                  void* stream) {
   if (num_codes < 1 || num_codes > kMaxCodes) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  const dim3 grid(grid_size(n, num_sms));
-  group_min_max_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)codes, (const int*)values, (const int*)sel, n, num_codes,
-      (int*)mins, (int*)maxs);
-  return (int)cudaGetLastError();
+  Pred p = {};
+  p.p0 = (const int*)sel;
+  const Job j = {(const int*)codes, (const int*)values, p, n, num_codes, 0u,
+                 num_sms, (cudaStream_t)stream};
+  return launch<MinMax, kPos, 1>(j, {(int*)mins, (int*)maxs});
 }

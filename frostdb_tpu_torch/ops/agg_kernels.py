@@ -21,15 +21,16 @@ nothing.
 Bound on the card: memory bandwidth. The sum/count kernels read one
 predicate plane per clause (4 B/row, plus 1 B/row for the int8 base plane)
 and the code and value of each selected row (no value with ``values=None``,
-the count-only pass); min/max reads codes, values and the selection (12
-B/row); block compaction reads the selection (4 B/row) and writes
-``n_blocks x (1 + capb)`` int32. Their arithmetic is a handful of integer
-ops per row, far below the card's rate, so the bound is bytes / 3.35 TB/s.
-The sum/count design reads each plane once in 16-byte vectors, evaluates
-the predicate in registers (no selection plane is written), accumulates
-runs of equal codes in registers and writes them out warp-aggregated into
-per-code tables in shared memory; only [K]-sized partials reach device
-memory. See ``csrc/agg.cu`` and PERF.md.
+the count-only pass); min/max reads the selection (4 B/row) and the code
+and value of each selected row; block compaction reads the selection (4
+B/row) and writes ``n_blocks x (1 + capb)`` int32. Their arithmetic is a
+handful of integer ops per row, far below the card's rate, so the bound is
+bytes / 3.35 TB/s. The sum/count and min/max kernels are one template:
+each plane is read once in 16-byte vectors, the predicate evaluated in
+registers (no selection plane is written), runs of equal codes kept in
+registers and written out with 32-bit shared atomics into per-code tables
+in shared memory; only [K]-sized partials reach device memory. See
+``csrc/agg.cu`` and PERF.md.
 
 Contract differences from the Pallas entries: the third result of the
 sum/count kernels is the EXACT first selected row per code (INT32_MAX when

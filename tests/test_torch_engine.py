@@ -344,8 +344,8 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 
 def test_port_imports_without_jax_pyarrow_or_triton():
-    """Every module of the port imports in a process where jax, pyarrow,
-    triton and the JAX package cannot be imported."""
+    """Every module of the port and its chip scripts import in a process
+    where jax, pyarrow, triton and the JAX package cannot be imported."""
     code = """
 import importlib, pkgutil, sys
 class Block:
@@ -357,6 +357,7 @@ import frostdb_tpu_torch
 for m in pkgutil.walk_packages(frostdb_tpu_torch.__path__, "frostdb_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+import kernel_variants
 """
     repo = pathlib.Path(__file__).resolve().parents[1]
     subprocess.run([sys.executable, "-c", code], cwd=repo, check=True, timeout=120)

@@ -333,6 +333,25 @@ def test_min_max_vs_pallas(interpret, num_codes, sel_p, lo, hi):
     np.testing.assert_array_equal(maxs.numpy(), np.asarray(jmax))
 
 
+# K3 on the code layouts of the shared CUDA template, and on a selection
+# plane holding negative values, which select no row (sel > 0 only).
+@pytest.mark.parametrize("layout", sorted(_LAYOUTS) + ["negative_sel"])
+def test_min_max_layouts_vs_pallas(interpret, layout):
+    (c, v, _ts, s), k = _layout_planes("sorted_runs" if layout == "negative_sel" else layout)
+    v = (v - (1 << 20)).astype(np.int32)  # values of both signs
+    if layout == "negative_sel":
+        s = np.random.default_rng(23).integers(-3, 3, s.shape).astype(np.int32)
+    mins, maxs = AK.group_min_max(
+        torch.from_numpy(c), torch.from_numpy(v), torch.from_numpy(s), k
+    )
+    jmin, jmax = PA.pallas_group_min_max(
+        jnp.asarray(c), jnp.asarray(v), jnp.asarray(s), k
+    )
+    np.testing.assert_array_equal(mins.numpy(), np.asarray(jmin))
+    np.testing.assert_array_equal(maxs.numpy(), np.asarray(jmax))
+    assert (mins.numpy() != I32_MAX).any()
+
+
 # ---------------------------------------------------------------------------
 # K = 2048 and ragged lengths against the XLA twins (ops/fused.py)
 
@@ -496,6 +515,30 @@ def test_filter_group_sum_count_vs_pallas(
     np.testing.assert_array_equal(sums.numpy(), np.asarray(js))
     np.testing.assert_array_equal(counts.numpy(), np.asarray(jc))
     assert sums.dtype == counts.dtype == torch.int64
+
+
+def test_filter_group_sum_count_on_bench_hash_vs_pallas(interpret):
+    """bench.py's kernel-bench data (``gen``: 64 codes from a multiplicative
+    hash of the row index, values in [0, 1000), ts in [0, 100)) at 2 x 8192
+    rows, ``ts >= 50``: no two neighbouring rows share a run."""
+    n = 2 * ROWS_PER_SUPER
+    i = np.arange(n, dtype=np.uint64).astype(np.uint32) + np.uint32(
+        (3 * 0x9E3779B9) & 0xFFFFFFFF
+    )
+    h = (i * np.uint32(2654435761)) ^ (i >> 16)
+    c, v, ts = (
+        a.astype(np.int32).reshape(-1, 128)
+        for a in (h % np.uint32(64), (h >> 8) % np.uint32(1000), (h >> 4) % np.uint32(100))
+    )
+    sums, counts = AK.filter_group_sum_count(
+        torch.from_numpy(c), torch.from_numpy(v), torch.from_numpy(ts), 50, 64
+    )
+    js, jc = PA.pallas_filter_group_sum_count(
+        jnp.asarray(c), jnp.asarray(v), jnp.asarray(ts), 50, 64
+    )
+    np.testing.assert_array_equal(sums.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jc))
+    assert counts.sum() == ((h >> 4) % np.uint32(100) >= 50).sum()
 
 
 @pytest.mark.parametrize("num_codes,lit", [(64, 50), (2048, 10)])
