@@ -10,7 +10,7 @@ kernels also the code layouts they are designed for: sorted runs across
 the vector, warp, block and grid-stride boundaries, one code, two random
 codes, out-of-range codes, ragged lengths, 2048 codes, unaligned planes,
 the count-only pass, int32-extreme values, negative selection entries and
-min/max's second pass over a wide column). Then drives three paths, each
+min/max's second pass over a wide column). Then drives four paths, each
 with the launch counts set to 0 just before it and read just after:
 
 1. the aggregate shapes (slice 1): the engine's hot filter + group-by
@@ -23,7 +23,14 @@ with the launch counts set to 0 just before it and read just after:
    distincts on compiled_distinct and Labels on schema_meta, each checked
    against the generic DAG (rows and batch boundaries) and numpy, timed and
    profiled;
-3. the kernel bench (bench.py's data): 8 datasets of 2^25 rows through the
+3. the join shapes (slice 3) on the same table as the probe side, against
+   three small build tables: six aggregates over inner, semi, anti and
+   left_outer joins on a dictionary key and an int64 key, served by the
+   compiled_join tier on the sum/count and min/max kernels, each checked
+   against numpy at full width and against the generic DAG on a 2-part
+   table; and a join that returns rows, on the generic HashJoin, checked
+   row for row against a numpy join; timed and profiled;
+4. the kernel bench (bench.py's data): 8 datasets of 2^25 rows through the
    fused `ts >= literal` sum/count kernel, checked exactly against numpy.
 
 Last, each kernel is checked and timed on the inputs its path gave it
@@ -1241,6 +1248,327 @@ def scan_layout(engine, E, total) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Join phase (slice 3)
+
+
+def join_tables(db):
+    """The join phase's build sides in ``db``, each with its own dictionary:
+
+    - ``dims``: bench_macro.py's join_agg dims (bench_macro.py:216-253) on
+      the engine table: every second of the 64 labels, ``weight = arange``;
+    - ``dims_dup``: tests/test_join_fused.py build_db's shape: every third
+      label and one the probe lacks, 1-3 rows each, three null keys,
+      nullable ``weight`` in [-100, 100);
+    - ``idims``: an int64 ``timestamp`` key over every third value of
+      [0, 1000), 1-2 rows each, plus two keys outside the probe's span and
+      a null key, int64 ``w``.
+
+    Returns {name: (keys, values, values' validity)} in scan order, keys as
+    probe label codes (-1: null or absent from the probe) or int64 (None:
+    null)."""
+    from frostdb_tpu_torch.columnbatch import Column, ColumnBatch, KIND_DICT, KIND_INT64
+    from frostdb_tpu_torch.schema import (
+        ColumnDef, ENCODING_RLE_DICTIONARY, SchemaDef, StorageLayout, TYPE_INT64, TYPE_STRING,
+    )
+    from frostdb_tpu_torch.table import TableConfig
+
+    rng = np.random.default_rng(SEED + 3)
+    dict_str = StorageLayout(TYPE_STRING, nullable=True, encoding=ENCODING_RLE_DICTIONARY)
+    i64 = StorageLayout(TYPE_INT64, nullable=True)
+    out = {}
+    for name, key, vcol in (("dims", "labels.label1", "weight"),
+                            ("dims_dup", "labels.label1", "weight"),
+                            ("idims", "timestamp", "w")):
+        kdef = ColumnDef(key, dict_str if key.startswith("labels") else i64)
+        t = db.table(name, TableConfig(schema=SchemaDef(name, (kdef, ColumnDef(vcol, i64)), ())))
+        if name == "dims":
+            keys = list(range(0, NUM_CODES, 2))
+            w = np.arange(len(keys), dtype=np.int64)
+            wv = np.ones(len(keys), bool)
+        elif name == "dims_dup":
+            keys = [k for k in range(0, NUM_CODES, 3) for _ in range(rng.integers(1, 4))]
+            keys += [NUM_CODES, None, None, None]  # "gx" is not in the probe
+            keys = [keys[j] for j in rng.permutation(len(keys))]
+            wv = rng.random(len(keys)) > 0.15
+            w = np.where(wv, rng.integers(-100, 100, len(keys)), 0).astype(np.int64)
+        else:
+            keys = [k for k in range(0, 1000, 3) for _ in range(rng.integers(1, 3))]
+            keys += [-7, 5000, None]  # outside the probe's [0, 1000) span
+            w = rng.integers(-50, 1000, len(keys)).astype(np.int64)
+            wv = np.ones(len(keys), bool)
+        n = len(keys)
+        kvalid = np.array([k is not None for k in keys])
+        if key.startswith("labels"):
+            d = t.dictionary("labels")
+            kc, _v = d.encode([f"g{k}" if k != NUM_CODES else "gx" for k in keys if k is not None])
+            codes = np.zeros(n, np.int32)
+            codes[kvalid] = kc
+            kcol = Column(key, KIND_DICT, codes, kvalid, d)
+            probe_keys = np.array([-1 if k is None or k >= NUM_CODES else k for k in keys])
+        else:
+            kv = np.array([0 if k is None else k for k in keys], dtype=np.int64)
+            kcol = Column(key, KIND_INT64, kv, kvalid)
+            probe_keys = keys
+        t.insert_record(ColumnBatch([kcol, Column(vcol, KIND_INT64, w, wv)], n))
+        t.sync()
+        out[name] = (probe_keys, w, wv)
+    return out
+
+
+def join_literals(i):
+    """The join shapes' literals for query number ``i``: timestamp >= ts,
+    value < value_lt, value > value_gt, and the build-side weight >= weight
+    of the semi/anti shapes."""
+    return {"ts": 100 + 37 * i, "value_lt": 300 + 41 * i,
+            "value_gt": 995 - i % 3, "weight": i % 5}
+
+
+def join_shapes(E, i, table="t"):
+    """The join phase's query shapes for query number ``i`` (literals vary
+    with it): (name, fn(engine) -> query, serving tier, kernels)."""
+    ts, v, label = E.Col("timestamp"), E.Col("value"), E.Col("labels.label1")
+    lits = join_literals(i)
+    lit = lits["ts"]
+
+    def join(e, right, how, filt=None, on="labels.label1"):
+        q = e.scan_table(table)
+        if filt is not None:
+            q = q.filter(filt)
+        return q.join(right, on=[on], how=how)
+
+    def dims_upto(e):
+        # build-side literal: the match set changes from query to query
+        return e.scan_table("dims").filter(E.Col("weight").gt_eq(lits["weight"]))
+
+    k2, k2k3 = {"group_sum_count"}, {"group_sum_count", "group_min_max"}
+    return [
+        ("join_agg",
+         lambda e: join(e, e.scan_table("dims"), "inner", ts.gt_eq(lit)).aggregate(
+             [E.Sum(E.Col("weight"))], [label]),
+         "compiled_join", k2),
+        ("join_all_aggs",
+         lambda e: join(e, e.scan_table("dims_dup"), "inner", ts.gt_eq(lit)).aggregate(
+             [E.Count(v), E.Sum(v), E.Sum(E.Col("weight")), E.Min(E.Col("weight")),
+              E.Max(E.Col("weight"))], [label]),
+         "compiled_join", k2k3),
+        ("join_semi",
+         lambda e: join(e, dims_upto(e), "semi").aggregate([E.Count(v)], [label]),
+         "compiled_join", k2),
+        ("join_anti",
+         lambda e: join(e, dims_upto(e), "anti").aggregate([E.Count(v)], [label]),
+         "compiled_join", k2),
+        ("join_left_outer",
+         lambda e: join(e, e.scan_table("dims"), "left_outer", ts.gt_eq(lit)).aggregate(
+             [E.Count(v), E.Sum(E.Col("weight")), E.Sum(v)], [label]),
+         "compiled_join", k2),
+        ("join_int_key",
+         lambda e: join(e, e.scan_table("idims"), "inner", v.lt(lits["value_lt"]),
+                        on="timestamp").aggregate(
+             [E.Count(v), E.Sum(E.Col("w")), E.Sum(v)], [label]),
+         "compiled_join", k2),
+        ("join_rows",
+         lambda e: join(e, e.scan_table("dims_dup"), "inner", v.gt(lits["value_gt"])).project(
+             label, v, E.Col("weight")),
+         "generic", set()),
+    ]
+
+
+def _side_luts(side, size, lit=None):
+    """(count, sum, min, max) per key over a build side's rows with a valid
+    key in [0, size) (and, with ``lit``, value >= lit); null values count
+    as 0, as the joined batch's zeroed null slots do."""
+    keys, w, wv = side
+    k = np.array([-1 if x is None else x for x in keys], dtype=np.int64)
+    w0 = np.where(wv, w, 0)
+    ok = (k >= 0) & (k < size)
+    if lit is not None:
+        ok &= w0 >= lit
+    cnt = np.bincount(k[ok], minlength=size)
+    s = np.bincount(k[ok], weights=w0[ok], minlength=size).astype(np.int64)
+    mn = np.full(size, np.iinfo(np.int64).max)
+    mx = np.full(size, np.iinfo(np.int64).min)
+    np.minimum.at(mn, k[ok], w0[ok])
+    np.maximum.at(mx, k[ok], w0[ok])
+    return cnt, s, mn, mx
+
+
+def join_reference(name, i, flat, sides):
+    """{label: (agg values...)} of a fused join shape from the generated
+    arrays with numpy: the per-label partials of the probe selection
+    combined with the build side's multiplicities and partials."""
+    codes, ts, val = flat
+    k_all = np.arange(NUM_CODES)
+    lits = join_literals(i)
+
+    def bc(m, weights=None):
+        return np.bincount(codes[m], weights=weights, minlength=NUM_CODES).astype(np.int64)
+
+    out = {}
+    if name == "join_int_key":
+        cnt, s, _mn, _mx = _side_luts(sides["idims"], 1000)
+        m = val < lits["value_lt"]
+        c_r = cnt[ts[m]]
+        n = bc(m, c_r)
+        cols = (n, bc(m, s[ts[m]]), bc(m, val[m] * c_r))
+        keep = n > 0
+    elif name in ("join_semi", "join_anti"):
+        cnt, *_r = _side_luts(sides["dims"], NUM_CODES, lit=lits["weight"])
+        n = bc(np.ones(len(codes), bool))
+        cols = (n,)
+        keep = (n > 0) & ((cnt > 0) if name == "join_semi" else (cnt == 0))
+    else:
+        side = sides["dims_dup" if name == "join_all_aggs" else "dims"]
+        cnt, s, mn, mx = _side_luts(side, NUM_CODES)
+        m = ts >= lits["ts"]
+        n, sv = bc(m), bc(m, val[m])
+        if name == "join_agg":
+            cols, keep = (n * s,), (n > 0) & (cnt > 0)
+        elif name == "join_all_aggs":
+            cols, keep = (n * cnt, sv * cnt, n * s, mn, mx), (n > 0) & (cnt > 0)
+        else:  # left_outer: unmatched rows emit once, with null weights
+            mult = np.maximum(cnt, 1)
+            cols, keep = (n * mult, n * s, sv * mult), n > 0
+    for k in k_all[keep]:
+        out[f"g{k}"] = tuple(int(col[k]) for col in cols)
+    return out
+
+
+def join_rows_check(out, i, table, side):
+    """join_rows' batches against a numpy join, row for row and in order:
+    probe rows in scan order with ``value > value_gt``, each followed by its
+    build rows in build order."""
+    parts = table.collect_parts(table.db.high_watermark())
+    lab = parts[0].batch.column("labels.label1").dictionary
+    if list(lab.values[:NUM_CODES]) != [f"g{k}" for k in range(NUM_CODES)]:
+        raise AssertionError("join_rows: probe label codes are not g0..g63")
+    pc = np.concatenate([p.batch.column("labels.label1").values for p in parts]).astype(np.int64)
+    pv = np.concatenate([p.batch.column("value").values for p in parts])
+    sel = np.flatnonzero(pv > join_literals(i)["value_gt"])
+    keys, w, wv = side
+    bk = np.array([-1 if k is None else k for k in keys], dtype=np.int64)
+    order = np.argsort(np.where(bk >= 0, bk, NUM_CODES), kind="stable")
+    cnt = np.bincount(bk[bk >= 0], minlength=NUM_CODES)
+    starts = np.cumsum(cnt) - cnt
+    n_out = cnt[pc[sel]]
+    li = np.repeat(sel, n_out)
+    rank = np.arange(len(li)) - np.repeat(np.cumsum(n_out) - n_out, n_out)
+    brow = order[starts[pc[li]] + rank]
+    ref = {
+        "labels.label1": (np.char.add("g", pc[li].astype(str)).astype(object), np.ones(len(li), bool)),
+        "value": (pv[li], np.ones(len(li), bool)),
+        "weight": (w[brow], wv[brow]),
+    }
+    got = {}
+    for b in batch_columns(out):
+        for name, _kind, vals, valid in b:
+            got.setdefault(name, []).append((vals, valid))
+    if list(got) != list(ref):
+        raise AssertionError(f"join_rows: columns {list(got)}")
+    for name, (rv, rm) in ref.items():
+        gv = np.concatenate([x[0] for x in got[name]])
+        gm = np.concatenate([x[1] for x in got[name]])
+        if not (np.array_equal(gm, rm) and np.array_equal(gv[gm], rv[rm])):
+            raise AssertionError(f"join_rows: column {name} differs from the numpy join")
+    return len(li)
+
+
+def join_phase(AK, db, engine, generic, data, total):
+    """Slice 3's path on the engine table: the six fused join shapes on the
+    compiled_join tier and join_rows on the generic HashJoin, each once with
+    the launch counts set to 0 before and read after (the inputs of each
+    kernel's first launch per shape are kept); every result against numpy
+    at full width, the fused shapes also against the generic DAG on the
+    2-part table; then timed over QUERY_REPS queries with varying literals
+    and profiled once each."""
+    import torch
+
+    from frostdb_tpu_torch.query import expr as E
+    from frostdb_tpu_torch.query.engine import NOT_PORTED
+
+    t0 = time.perf_counter()
+    sides = join_tables(db)
+    flat = tuple(np.concatenate([d[j] for d in data]) for j in range(3))
+    table = db.get_table("t")
+    log(
+        "join build sides: " + ", ".join(f"{n} {len(s[0])} rows" for n, s in sides.items())
+        + f", made in {time.perf_counter() - t0:.1f} s"
+    )
+    for _name, make_q, _tier, _k in join_shapes(E, 0):
+        run_shape(engine, make_q)
+    torch.cuda.synchronize()
+
+    AK.reset_launches()
+    results = []
+    captured: dict = {}
+    with capture_kernel_args(AK) as seen:
+        for name, make_q, tier, kernels in join_shapes(E, 0):
+            before = dict(AK.LAUNCHES)
+            n_seen = len(seen)
+            out = run_shape(engine, make_q)
+            moved = {k for k in AK.LAUNCHES if AK.LAUNCHES[k] > before[k]}
+            if engine.last_serving_path != tier:
+                raise AssertionError(f"{name}: served by {engine.last_serving_path}: {engine.last_fallback_reasons}")
+            if engine.last_fallback_reasons.get("compiled_join") == NOT_PORTED:
+                raise AssertionError(f"{name}: compiled_join reads {NOT_PORTED!r}")
+            if moved != kernels:
+                raise AssertionError(f"{name}: launched {moved}, expected {kernels}")
+            keep_captures(captured, name, seen[n_seen:])
+            results.append((name, make_q, out))
+    launches = dict(AK.LAUNCHES)
+    log(f"main path launches (join shapes): {json.dumps(launches)}")
+
+    on_t2 = {name: make_q for name, make_q, _t, _k in join_shapes(E, 0, "t2")}
+    for name, make_q, out in results:
+        if name == "join_rows":
+            n = join_rows_check(out, 0, table, sides["dims_dup"])
+            log(f"join_rows: {n} rows in {len(out)} batches == the numpy join, row for row")
+            continue
+        got = {row[0][1]: tuple(v for _n, v in row[1:]) for row in as_rows(out)}
+        if got != join_reference(name, 0, flat, sides):
+            raise AssertionError(f"{name}: result differs from the numpy reference")
+        t1 = time.perf_counter()
+        fast = as_rows(run_shape(engine, on_t2[name]))
+        path = engine.last_serving_path
+        slow = as_rows(run_shape(generic, on_t2[name]))
+        if path != "compiled_join" or generic.last_serving_path != "generic":
+            raise AssertionError(f"{name} on t2: paths {path}/{generic.last_serving_path}")
+        if fast != slow:
+            raise AssertionError(f"{name}: compiled_join and the generic DAG differ on t2")
+        log(
+            f"{name}: {len(got)} groups == numpy at full width; on t2 compiled_join "
+            f"== generic DAG, rows and order ({len(fast)} groups, "
+            f"{time.perf_counter() - t1:.2f} s for both)"
+        )
+
+    walls: dict = {}
+    for i in range(QUERY_REPS):
+        for name, make_q, tier, _k in join_shapes(E, i):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = run_shape(engine, make_q)
+            walls.setdefault(name, []).append((time.perf_counter() - t1) * 1e3)
+            if engine.last_serving_path != tier:
+                raise AssertionError(f"{name} #{i}: served by {engine.last_serving_path}")
+            if name in ("join_semi", "join_anti"):
+                # cheap to recheck: the build-side literal moves the match set
+                got = {r[0][1]: tuple(x for _n, x in r[1:]) for r in as_rows(out)}
+                if got != join_reference(name, i, flat, sides):
+                    raise AssertionError(f"{name} #{i}: result differs from the numpy reference")
+    for name, w in walls.items():
+        log(
+            f"engine {name}: median {statistics.median(w):.3f} ms, "
+            f"min {min(w):.3f} ms over {len(w)} queries of {total} rows"
+        )
+    device_breakdown(
+        [(name, lambda m=make_q: run_shape(engine, m))
+         for name, make_q, _t, _k in join_shapes(E, 0)],
+        walls,
+    )
+    log(f"join phase: {time.perf_counter() - t0:.1f} s")
+    return launches, captured
+
+
+# ---------------------------------------------------------------------------
 # Kernel bench phase (K5)
 
 
@@ -1358,6 +1686,7 @@ def main() -> int:
     launches, captured, (db, engine, generic, data) = engine_phase(AK, args)
     for more_launches, more_captured in (
         scan_distinct_phase(AK, db, engine, generic, data, total),
+        join_phase(AK, db, engine, generic, data, total),
         k5_bench_phase(AK, dev),
     ):
         for k, n in more_launches.items():

@@ -14,9 +14,11 @@ Device: ``ColumnStore(device=...)`` picks the torch device every table
 lives on. The default is ``"cuda"``, which raises when no GPU is visible;
 pass ``device="cpu"`` to run on the CPU.
 
-Ported so far: in-memory tables, the planner and generic operator DAG, and
-the ``compiled`` serving tier. Persistence, joins, the other serving tiers,
-SQL, the plan protocol and multi-device execution are not ported yet.
+Ported so far: in-memory tables, the planner and generic operator DAG
+(joins included), and the ``compiled``, ``compiled_join``,
+``compiled_distinct``, ``schema_meta`` and ``compiled_scan`` serving tiers.
+Persistence, the ``dense`` tier, SQL, the plan protocol and multi-device
+execution are not ported yet.
 """
 
 from .schema import (

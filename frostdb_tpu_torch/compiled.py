@@ -49,8 +49,11 @@ query runs one fused pass set over it and copies one int64 result blob to
 the host. On a CPU table the same program runs the kernels' plain versions,
 so results are identical on both devices.
 
-Not ported here: the join fusion (compiled_join.py's gather/mul value
-planes, which come with the join slice) and the per-part fallback.
+The join fusion (compiled_join.py) rides the same program through three
+hooks: an ``in_lut``/``intlut`` match leaf, virtual value planes gathered or
+multiplied from build-side LUTs (``_ValuePlan.source``), and join-key group
+columns allowed to carry nulls (``_null_ok_group_cols``). Not ported here:
+the per-part fallback.
 """
 
 from __future__ import annotations
@@ -75,6 +78,13 @@ class NotCompilable(Exception):
     to the generic engine."""
 
 
+# Internal filter-leaf op for the join->aggregate fusion (compiled_join.py):
+# the leaf's ``lit`` IS a precomputed boolean LUT over the table-global
+# dictionary codes (the build side's match set), applied like any other dict
+# leaf — one gather per row. Never produced by user expressions.
+OP_IN_LUT = "in_lut"
+
+
 @dataclass
 class _AggSpec:
     func: str  # "sum" | "count" | "min" | "max"
@@ -92,12 +102,15 @@ class _FilterLeaf:
     boolean LUT over the table-global dictionary values (the reference
     evaluates string predicates once per parquet dictionary page,
     binaryscalarexpr.go:104) and applied as one gather per row.
+    kind "intlut": the int-key join match leaf (compiled_join.py); ``lit``
+    is (base, bool LUT over the range-dense key space), gathered by
+    ``value - base``.
     """
 
     column: str
     op: str
     lit: object
-    kind: str  # "int" | "dict"
+    kind: str  # "int" | "dict" | "intlut"
     dictionary: object = None  # table-global dictionary for "dict" leaves
 
 
@@ -111,6 +124,13 @@ def _missing_leaf_all_true(leaf: _FilterLeaf) -> bool:
     filter.go:174) instead of crashing the compiled path."""
     import re
 
+    if leaf.op == OP_IN_LUT:
+        # Join match/anti leaf (compiled_join.py): a missing key column
+        # means all-null join keys, and null keys never survive any join
+        # mode (inner/semi drop non-matches; anti drops null keys too,
+        # query/join.py join_batches ``lvalid & (mc == 0)``) — the part is
+        # statically empty.
+        return False
     try:
         return missing_column_all_true(leaf.op, leaf.lit)
     except re.error:
@@ -190,6 +210,29 @@ class _ValuePlan:
     # transform (k = bits ^ ((bits >> 63) & 0x7FF..F)) — served by the
     # int64-native dense/mesh tiers (not ported); the compiled tier declines.
     fmm: bool = False
+    # Virtual plane source (the join->aggregate fusion, compiled_join.py):
+    #   None                     a real part column (the default)
+    #   ("gather", key_col)      plane = lut[key codes] — a per-key-code
+    #                            right-side partial (sum/count/min/max over
+    #                            the build side) gathered by the probe
+    #                            side's dictionary codes
+    #   ("mul", key_col, src)    plane = src_values * cnt_lut[key codes] —
+    #                            a probe-side value replicated per matching
+    #                            build row (sum over join pairs)
+    #   ("gatherv<e>", key)      left_outer: valid-key rows gather the LUT,
+    #                            null-key rows contribute the static else
+    #                            value e (0 for value partials, 1 for the
+    #                            row-count multiplier); LUT values must be
+    #                            non-negative (bias stays 0)
+    #   ("mulv", key, src)       left_outer sum(probe col): multiplier is
+    #                            max(cnt,1) for valid keys, 1 for null keys
+    #   ("gather_i", key, base)  int-key joins: codes are (key - base) over
+    #   ("mul_i", key, base, src)  the range-dense key span
+    # Runtime LUT contents ride in ``lut`` (np.int64, raw/unshifted; the
+    # device upload applies the bias shift host-side).
+    source: object = None
+    lut: object = None
+    lut_dev: object = None  # per-execute shifted device LUT
     # unique(col): needs min/max planes (reused) + a per-group count of
     # VALID value slots; valid = (min == max) & (validcnt == groupcount)
     # (kernels.segment_agg AGG_UNIQUE semantics / aggregate.go:712).
@@ -501,11 +544,19 @@ class CompiledFilterAggregate:
                     raise NotCompilable(
                         f"group column {gcol.name} kind mismatch"
                     )
-                if not p.all_valid(gcol.name):
+                if not p.all_valid(gcol.name) and (
+                    gcol.name not in self._null_ok_group_cols
+                ):
                     # The generic engine emits a null-key group for these
                     # rows (kernels.group_ids keys on validity); fall back.
+                    # Exception: join-key group columns under the join
+                    # fusion (compiled_join.py) — null keys never survive
+                    # the join, and the selection mask already drops them
+                    # (basesel multiplies group validity).
                     raise NotCompilable("null group keys (generic engine path)")
             for plan in self.value_plans.values():
+                if plan.source is not None:
+                    continue  # virtual plane: no part column to check
                 c = p.batch.column(plan.column)
                 if c is None:
                     raise NotCompilable(f"part lacks {plan.column}")
@@ -576,7 +627,7 @@ class CompiledFilterAggregate:
                     # all-false parts were skipped, all-true leaves are
                     # no-ops on this part.
                     continue
-                if leaf.kind == "int":
+                if leaf.kind in ("int", "intlut"):
                     if f.kind != KIND_INT64:
                         raise NotCompilable("filter column kind mismatch")
                 elif f.kind != KIND_DICT:
@@ -603,7 +654,18 @@ class CompiledFilterAggregate:
                 )
             ):
                 plan.fmm = True
+        # Virtual value planes (join fusion) derive their ranges from the
+        # build-side LUT contents, not part metadata.
+        self._virtual_ranges(parts, ranges)
         return ranges
+
+    # Group columns allowed to carry null keys (overridden by the join
+    # fusion for its join-key columns; see _check_parts_common).
+    _null_ok_group_cols: frozenset = frozenset()
+
+    def _virtual_ranges(self, parts, ranges) -> None:
+        """Hook: fill ``ranges`` for virtual value plans (plan.source is
+        not None). The base class has none."""
 
     # Memory limiting (reference query/memory.go:17 LimitAllocator): the
     # fast tiers account their per-query transient — the host-fetched
@@ -863,6 +925,9 @@ class CompiledFilterAggregate:
         if cache is None:
             cache = self._lut_cache = {}
         leaf = self.filters[idx]
+        if leaf.op == OP_IN_LUT:
+            # The lit IS the LUT (rebuilt per execute from the build side).
+            return np.asarray(leaf.lit, dtype=np.bool_)
         key = (idx, len(leaf.dictionary))
         lut = cache.get(key)
         if lut is None:
@@ -889,6 +954,17 @@ class CompiledFilterAggregate:
         if cache is None:
             cache = self._lut_dev_cache = {}
         leaf = self.filters[idx]
+        if leaf.op == OP_IN_LUT:
+            # in_lut content changes per execute (the build side re-runs),
+            # so the device LUT is keyed on the LUT array's identity, and
+            # the entry pins the array so its id cannot be reused.
+            hit = cache.get((idx, "in_lut"))
+            if hit is None or hit[0] is not leaf.lit:
+                hit = cache[(idx, "in_lut")] = (
+                    leaf.lit,
+                    self._put(self._leaf_lut_np(idx).astype(np.int32)),
+                )
+            return hit[1]
         key = (idx, len(leaf.dictionary))
         lut = cache.get(key)
         if lut is None:
@@ -1084,6 +1160,8 @@ class CompiledFilterAggregate:
 
     def _leaf_sig(self, sp, leaf) -> tuple:
         static = _missing_leaf_all_true(leaf)
+        if leaf.kind == "intlut":
+            return ("intlut",)
         if leaf.kind == "int":
             return ("int", leaf.op, static, self._leaf_i32_ok(sp, leaf))
         if leaf.lit is None:
@@ -1108,6 +1186,7 @@ class CompiledFilterAggregate:
             if (
                 p.wide
                 or p.fexact is not None
+                or p.source is not None
                 or p.need_minmax
                 or p.need_unique
                 or p.need_and
@@ -1230,6 +1309,7 @@ class CompiledFilterAggregate:
                 p.num_digits,
                 p.hi_digits,
                 p.fexact_top_digits if p.fexact is not None else None,
+                p.source[0] if p.source is not None else "plain",
                 p.need_unique,
                 p.need_and,
             )
@@ -1246,6 +1326,16 @@ class CompiledFilterAggregate:
     def _leaf_args(self, sp, leaf, lut_idx: Optional[int]) -> list:
         """Args for one comparison leaf (shared by filter clauses and bool
         group keys); layout must match _leaf_sig."""
+        if leaf.kind == "intlut":
+            # lit = (base, bool lut) set per execute by the join fusion
+            base, lut_np = leaf.lit
+            return [
+                self._sp_plane(sp, "int64_m", leaf.column),
+                self._sp_plane(sp, "valid_m", leaf.column),
+                self._sp_plane(sp, "has", leaf.column),
+                int(base),
+                self._put(lut_np.astype(np.int32)),
+            ]
         if leaf.kind == "int":
             plane = (
                 self._sp_i32_m(sp, leaf.column)
@@ -1350,7 +1440,32 @@ class CompiledFilterAggregate:
                 for i in idxs:
                     args.extend(self._leaf_args(sp, self.filters[i], i))
         for plan in plans:
-            if plan.fexact is not None:
+            if plan.source is not None:
+                # Join-fusion virtual plane: the probe side's raw key codes
+                # plus the per-execute (bias-shifted) build-side LUT.
+                kind0 = plan.source[0]
+                if kind0.endswith("_i"):
+                    # int-key join: codes derive from the int64 key plane
+                    args.append(
+                        self._sp_plane(sp, "int64_m", plan.source[1])
+                    )
+                    args.append(int(plan.source[2]))
+                else:
+                    args.append(self._sp_plane(sp, "codes", plan.source[1]))
+                if kind0.startswith("gatherv") or kind0 == "mulv":
+                    # left_outer: null-key rows take the static else value
+                    args.append(self._sp_plane(sp, "valid", plan.source[1]))
+                args.append(plan.lut_dev)
+                if not kind0.startswith("gather"):
+                    # mul*: src values x match-count multiplier
+                    src_col = (
+                        plan.source[3]
+                        if kind0.endswith("_i")
+                        else plan.source[2]
+                    )
+                    args.append(self._sp_plane(sp, "int64", src_col))
+                    args.append(int(plan.bias))
+            elif plan.fexact is not None:
                 # Four host-decomposed digit planes (_sp_fplanes), uploaded
                 # once per part set.
                 args.extend(self._sp_fplanes(sp, plan.column, plan.fexact))
@@ -1603,6 +1718,14 @@ def _leaf_mask(leaf, xs, i: int):
     (laid out by ``_leaf_args`` for the ``_leaf_sig`` tuple ``leaf``);
     returns the mask and the index past its args. Missing columns resolve
     statically per row range via the cached ``has`` plane."""
+    if leaf[0] == "intlut":
+        # int-key join match: boolean LUT over the range-dense key space,
+        # gathered by (value - base); a part lacking the key matches none
+        fv, fvalid, has, base, lut = xs[i : i + 5]
+        i += 5
+        c = torch.clamp(fv - base, 0, lut.shape[0] - 1)
+        m = _take_clip(lut, c) * fvalid
+        return torch.where(has == 1, m, 0).to(torch.int32), i
     if leaf[0] == "int":
         fv, fvalid, has, lit = xs[i], xs[i + 1], xs[i + 2], xs[i + 3]
         i += 4
@@ -1701,10 +1824,70 @@ def _build_fused_program(structure):
             hi = (vdata >> _LO_BITS).to(torch.int32)
             return [(lo, nd), (hi, hd)]
 
+        def split(v, nd, hd, wide):
+            # Virtual planes are int64 (gathered from an int64 LUT or
+            # multiplied in int64) or int32 (gathered from a narrowed LUT);
+            # the narrowing comes last, after the multiply and the shift.
+            if wide:
+                return wide_split(v, nd, hd)
+            return [(v.to(torch.int32), nd)]
+
         vvalid_planes: dict = {}  # vi -> validity plane (unique/and plans)
         for vi0, (
-            need_sum, need_mm, wide, nd, hd, ftd, uniq, andf,
+            need_sum, need_mm, wide, nd, hd, ftd, src, uniq, andf,
         ) in enumerate(vps):
+            if src == "gather":
+                # Join fusion: build-side per-key-code partials gathered by
+                # the probe side's dictionary codes (bias already folded
+                # into the LUT host-side; absent codes hold 0 and are never
+                # selected).
+                cplane, lut = xs[i], xs[i + 1]
+                i += 2
+                value_planes.append(split(_take_clip(lut, cplane), nd, hd, wide))
+                continue
+            if src == "gather_i":
+                # int-key join: range-dense codes derive from the int64 key
+                # plane ((v - base) is in [0, K) for every probe slot by
+                # construction: base/K come from the parts' zone maps)
+                vplane, base, lut = xs[i], xs[i + 1], xs[i + 2]
+                i += 3
+                c = torch.clamp(vplane - base, 0, lut.shape[0] - 1)
+                value_planes.append(split(_take_clip(lut, c), nd, hd, wide))
+                continue
+            if src == "mul_i":
+                vplane, base, cnt, vals, bias = xs[i : i + 5]
+                i += 5
+                c = torch.clamp(vplane - base, 0, cnt.shape[0] - 1)
+                v = vals * _take_clip(cnt, c) - bias
+                value_planes.append(split(v, nd, hd, wide))
+                continue
+            if src.startswith("gatherv"):
+                # left_outer: null-key rows contribute the else value
+                # carried in the source tag ("gatherv0" / "gatherv1")
+                else_v = int(src[-1])
+                cplane, kvalid, lut = xs[i], xs[i + 1], xs[i + 2]
+                i += 3
+                v = torch.where(kvalid != 0, _take_clip(lut, cplane), else_v)
+                value_planes.append(split(v, nd, hd, wide))
+                continue
+            if src == "mulv":
+                # left_outer sum(probe col): multiplier max(cnt,1) for
+                # valid keys, 1 for null keys
+                cplane, kvalid, cnt, vals, bias = xs[i : i + 5]
+                i += 5
+                mult = torch.where(kvalid != 0, _take_clip(cnt, cplane), 1)
+                value_planes.append(split(vals * mult - bias, nd, hd, wide))
+                continue
+            if src == "mul":
+                # Join fusion: probe value x match count (sum over pairs of
+                # a probe-side column). Products are bounded by the plan's
+                # host-computed candidate range, so the bias shift keeps
+                # them in the digit envelope.
+                cplane, cnt, vals, bias = xs[i : i + 4]
+                i += 4
+                v = vals * _take_clip(cnt, cplane) - bias
+                value_planes.append(split(v, nd, hd, wide))
+                continue
             if ftd is not None:
                 # Exact float64 sums (floatsum.py): 3 base-2^28 digit
                 # planes + the top plane (biased non-negative), decomposed
@@ -1750,7 +1933,7 @@ def _build_fused_program(structure):
                 for vals, digits in value_planes[vi]:
                     passes.append((vi, vals, digits))
         for vi, vp_t in enumerate(vps):
-            if vp_t[6]:  # unique: count VALID slots per group
+            if vp_t[7]:  # unique: count VALID slots per group
                 passes.append((("u", vi), vvalid_planes[vi], 1))
         if not passes:
             # Nothing to sum (min/max only, distinct): a count-only pass

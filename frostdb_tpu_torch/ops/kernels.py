@@ -6,6 +6,7 @@ These replace the reference's per-row Go loops:
 - projection arithmetic      <- query/physicalplan/project.go binaryExprProjection
 - group aggregation          <- query/physicalplan/aggregate.go (hash map loop)
 - distinct                   <- query/physicalplan/distinct.go (seen-set loop)
+- join match expansion       <- no reference analogue (query/join.py)
 
 Design: every kernel takes padded same-shape tensors plus masks; row
 selection is a boolean vector (the roaring-bitmap analogue, filter.go:255);
@@ -402,3 +403,66 @@ def distinct_rows(key_vals, key_valid, sel):
         tuple(key_vals), tuple(key_valid), sel
     )
     return num_groups, first_row_o
+
+
+# ---------------------------------------------------------------------------
+# Hash-join expansion (the single-device CSR join behind query/join.py)
+
+
+def join_expand(
+    lcodes,
+    lkey_valid,
+    llive,
+    rcodes,
+    rkey_valid,
+    num_codes: int,
+    capacity: int,
+    left_outer: bool,
+):
+    """Expand equi-join matches on shared int key codes in [0, num_codes).
+
+    Build side (right) rows bucket by code through a stable sort (CSR); each
+    probe (left) row's matches expand through an exclusive cumsum of per-row
+    output counts and a searchsorted over the output index space. Output
+    slots are ordered (left row asc, right row asc): the stable sort keeps
+    equal codes in right-row order. The right side must hold at least one
+    row (callers pad an empty one with an invalid key).
+
+    Returns (total, li, rrow, live, matched) over ``capacity`` slots:
+    ``li``/``rrow`` (int32) index the probe/build rows per output slot;
+    ``live`` marks slots < total; ``matched`` marks slots with a real build
+    match (False only for left_outer's null-extended rows).
+    """
+    dev = lcodes.device
+    n_l = lcodes.shape[0]
+    n_r = rcodes.shape[0]
+    rc = rcodes.to(torch.int64)
+    safe_r = torch.where(
+        rkey_valid & (rc >= 0) & (rc < num_codes),
+        rc,
+        torch.full_like(rc, num_codes),
+    )
+    perm = torch.sort(safe_r, stable=True).indices
+    counts = torch.bincount(safe_r, minlength=num_codes + 1)[:num_codes]
+    starts = torch.cumsum(counts, 0) - counts
+    lc = torch.clamp(lcodes.to(torch.int64), 0, num_codes - 1)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    mc = torch.where(lkey_valid & llive, counts[lc], zero)
+    if left_outer:
+        out_counts = torch.where(llive, torch.clamp(mc, min=1), zero)
+    else:
+        out_counts = mc
+    off = torch.cat([zero.reshape(1), torch.cumsum(out_counts, 0)])
+    total = off[-1]
+    out_idx = torch.arange(capacity, dtype=torch.int64, device=dev)
+    li = torch.clamp(
+        torch.searchsorted(off, out_idx, right=True) - 1, 0, n_l - 1
+    )
+    rank = out_idx - off[li]
+    code = lc[li]
+    has = mc[li] > 0
+    rpos = torch.clamp(starts[code] + rank, 0, n_r - 1)
+    rrow = perm[rpos]
+    live = out_idx < total
+    matched = live & has
+    return total, li.to(torch.int32), rrow.to(torch.int32), live, matched

@@ -19,7 +19,7 @@ from ..memorylimit import LimitAllocator
 
 # Serving tiers of the reference engine that this package does not have yet.
 NOT_PORTED = "not ported"
-UNPORTED_TIERS = ("compiled_join", "dense")
+UNPORTED_TIERS = ("dense",)
 
 
 class LocalEngine:
@@ -94,8 +94,8 @@ class LocalQueryBuilder:
         """Equi-join with another query of this engine (north-star
         component, SURVEY.md §2.8): ``inner``/``left_outer`` extend rows with
         the right side's columns; ``semi``/``anti`` filter the left side.
-        Joins are not ported yet: executing one raises
-        NotImplementedError."""
+        An aggregate over the join is served by the ``compiled_join`` tier
+        where it can prove the result, else by the generic HashJoin."""
         rb = right.builder if isinstance(right, LocalQueryBuilder) else right
         return LocalQueryBuilder(self.engine, self.builder.join(rb, on, how))
 
@@ -199,25 +199,28 @@ class LocalQueryBuilder:
             # engine's exact result or declines with a recorded reason:
             #   compiled          fused filter+group-aggregate on the
             #                     hand-written CUDA kernels (ops/agg_kernels)
+            #   compiled_join     groupjoin decomposition of agg-over-join
             #   compiled_distinct fused distinct (Parca Types/Values)
             #   schema_meta       schema scans from part metadata (Labels)
-            # The reference's compiled_join and dense tiers sit between
-            # compiled and compiled_distinct; they are not ported yet and
-            # record NOT_PORTED. MemoryLimitExceeded propagates as a query
-            # error, never as a fallback.
+            # The reference's dense tier sits between compiled_join and
+            # compiled_distinct; it is not ported yet and records
+            # NOT_PORTED. MemoryLimitExceeded propagates as a query error,
+            # never as a fallback.
             from ..compiled import lower_plan
             from ..compiled_distinct import lower_plan_distinct
+            from ..compiled_join import lower_plan_join_agg
             from ..schema_meta import lower_plan_schema
 
-            if try_tier("compiled", lower_plan):
-                return
-            for path in UNPORTED_TIERS:
-                reasons[path] = NOT_PORTED
             for path, lower in (
+                ("compiled", lower_plan),
+                ("compiled_join", lower_plan_join_agg),
+                ("dense", None),
                 ("compiled_distinct", lower_plan_distinct),
                 ("schema_meta", lower_plan_schema),
             ):
-                if try_tier(path, lower):
+                if path in UNPORTED_TIERS:
+                    reasons[path] = NOT_PORTED
+                elif try_tier(path, lower):
                     return
             # Device-resident filter->project row retrieval streams its
             # batches (compiled_scan.py) — collected only when an epilogue

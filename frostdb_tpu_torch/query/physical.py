@@ -16,9 +16,10 @@ result — is byte-identical to serial execution (the reference achieves
 per-stream determinism only for single-record scans and marks multi-record
 tests "unordered").
 
-Device: the accumulating operators (aggregation, distinct) run their group
-kernels on the scanned table's torch device (``Table.device``), which the
-planner threads from the scan node into every such operator.
+Device: the accumulating operators (aggregation, distinct, the join's match
+expansion) run their kernels on the scanned table's torch device
+(``Table.device``), which the planner threads from the scan node into every
+such operator.
 """
 
 from __future__ import annotations
@@ -1031,6 +1032,66 @@ class Distinction(PhysicalOperator):
 
 
 # ---------------------------------------------------------------------------
+# Hash join (north-star component, SURVEY.md §2.8 — no reference analogue)
+
+
+class HashJoin(PhysicalOperator):
+    """Equi-join operator: accumulates the probe (left) stream, runs the
+    build (right) subplan at finish time, and joins via the shared-code CSR
+    expansion (query/join.py) on the scanned left table's device. Output is
+    canonically ordered (left stream row, right row)."""
+
+    def __init__(self, join, options, right_output: "OutputPlan", device=None):
+        super().__init__()
+        self.join = join
+        self.options = options
+        self.right_output = right_output
+        self.device = device
+        self._batches: list[ColumnBatch] = []
+        self._allocated = 0
+
+    def callback(self, batch: ColumnBatch) -> None:
+        if self.options.allocator is not None:
+            nbytes = _batch_bytes(batch)
+            self.options.allocator.allocate(nbytes)
+            self._allocated += nbytes
+        self._batches.append(batch)
+
+    def finish(self) -> None:
+        out = self._join()
+        if self.options.allocator is not None and self._allocated:
+            self.options.allocator.free(self._allocated)
+            self._allocated = 0
+        if out is not None and out.num_rows > 0:
+            self.next.callback(out)
+        self.next.finish()
+
+    def _join(self) -> Optional[ColumnBatch]:
+        if not self._batches:
+            return None
+        left = unify_concat(self._batches)
+        self._batches = []
+        if left.num_rows == 0:
+            return None
+        right_batches: list[ColumnBatch] = []
+        self.right_output.execute(right_batches.append)
+        right = unify_concat(right_batches) if right_batches else None
+        from .join import join_batches
+
+        return join_batches(
+            left, right, self.join.on, self.join.how, device=self.device
+        )
+
+    def draw(self) -> Diagram:
+        child = self.next.draw() if self.next is not None else None
+        keys = ",".join(self.join.on)
+        rdesc = self.right_output.draw_string()
+        return Diagram(
+            f"HashJoin ({self.join.how} on {keys}) [build: {rdesc}]", child
+        )
+
+
+# ---------------------------------------------------------------------------
 # Limit
 
 
@@ -1467,10 +1528,21 @@ def build_physical(plan: LogicalPlan, options: ExecOptions | None = None) -> Out
                     prev = [a]
             ordering_ok = bool(ordered)
         elif node.join is not None:
-            visit_err.append(
-                NotImplementedError("joins land in a later slice")
-            )
-            return False
+            ordering_ok = False
+            # Build side: an independent physical pipeline, executed by the
+            # operator at finish time. Probe lanes synchronize into one join
+            # (the accumulate-then-kernel pattern of HashAggregate), which
+            # expands its matches on the probe table's device.
+            right_output = build_physical(node.join.right, opts)
+            j = HashJoin(node.join, opts, right_output, device)
+            if len(prev) > 1:
+                sync = Synchronizer(len(prev))
+                for i in range(len(prev)):
+                    prev[i].set_next(sync.lane(i))
+                sync.set_next(j)
+            else:
+                prev[0].set_next(j)
+            prev = [j]
         elif node.sample is not None:
             v = int(_lit_value(node.sample.expr))
             limit = int(_lit_value(node.sample.limit))

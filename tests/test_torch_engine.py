@@ -327,7 +327,8 @@ def test_unported_tiers_fall_back_exactly(directed):
     assert out == ref
     assert path == "generic"
     assert reasons["compiled"].startswith("group code space")
-    assert reasons["compiled_join"] == reasons["dense"] == "not ported"
+    assert reasons["compiled_join"] == "no join below the aggregation"
+    assert reasons["dense"] == "not ported"
     assert "compiled_distinct" in reasons and "compiled_scan" in reasons
 
 

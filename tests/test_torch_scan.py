@@ -275,7 +275,8 @@ def test_unfiltered_scan_stays_generic(scan_dbs):
     _out, path, reasons = run_port(pdb, scan_q(lambda q: q.project(JE.Col("value"))))
     assert path == "generic"
     assert reasons["compiled_scan"] == "unfiltered scan (generic path)"
-    assert reasons["compiled_join"] == reasons["dense"] == "not ported"
+    assert reasons["compiled_join"] == "root is not an aggregation"
+    assert reasons["dense"] == "not ported"
 
 
 def test_empty_result(scan_dbs):
