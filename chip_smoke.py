@@ -10,7 +10,7 @@ kernels also the code layouts they are designed for: sorted runs across
 the vector, warp, block and grid-stride boundaries, one code, two random
 codes, out-of-range codes, ragged lengths, 2048 codes, unaligned planes,
 the count-only pass, int32-extreme values, negative selection entries and
-min/max's second pass over a wide column). Then drives four paths, each
+min/max's second pass over a wide column). Then drives five paths, each
 with the launch counts set to 0 just before it and read just after:
 
 1. the aggregate shapes (slice 1): the engine's hot filter + group-by
@@ -30,8 +30,19 @@ with the launch counts set to 0 just before it and read just after:
    against numpy at full width and against the generic DAG on a 2-part
    table; and a join that returns rows, on the generic HashJoin, checked
    row for row against a numpy join; timed and profiled;
-4. the kernel bench (bench.py's data): 8 datasets of 2^25 rows through the
+4. the dense shapes (slice 4) on a second 32 x 2^21-row table whose
+   stacktraces take 131,072 values at Zipf-like frequencies: Parca's merge
+   (sum and count by stacktrace over a time range) and its min/max on the
+   dense tier's sorted route, a (label, window) group-by of 4096 codes on
+   its segment route and a (label, stacktrace) group-by of 8,388,608 codes
+   on its shuffle route, each checked against numpy at full width and
+   against the generic DAG on a 2-part table, timed and profiled; no
+   K1-K6 kernel may run here (the dense tier is torch ops);
+5. the kernel bench (bench.py's data): 8 datasets of 2^25 rows through the
    fused `ts >= literal` sum/count kernel, checked exactly against numpy.
+
+Then every engine shape of paths 1-4 runs once more as SQL text through the
+port's SQL front end and must take the same tier and give the same rows.
 
 Last, each kernel is checked and timed on the inputs its path gave it
 (K1, K2 and K3 on every shape that launches them), beside its plain
@@ -61,6 +72,13 @@ NUM_CODES = 64
 ROWS_PER_PART = 1 << 21  # bench.py engine_bench
 SEED = 0  # bench.py engine_bench's rng(0)
 QUERY_REPS = 10
+
+# The dense phase's stacks table: stacktrace codes from NUM_STACKS distinct
+# stacks at Zipf-like frequencies; DENSE_WINDOW is the segment shape's
+# timestamp window (64 labels x 64 padded windows = 4096 codes).
+NUM_STACKS = 1 << 17
+STACK_ZIPF = 1.1
+DENSE_WINDOW = 20
 
 BENCH_ROWS = 1 << 25  # bench.py's kernel bench on the TPU: 2^25 rows
 BENCH_DATASETS = 8
@@ -606,11 +624,14 @@ def _tensors(args):
 # Engine phase
 
 
-def build_table(db, name, n_parts, floats=None, seed=SEED):
+def build_table(db, name, n_parts, floats=None, seed=SEED, stack_p=None):
     """bench.py engine_bench's table: n_parts records of ROWS_PER_PART rows,
     64 label codes, int64 timestamp and value in [0, 1000). With
     ``floats(rng, n)`` the table also holds the float64 ``floatvalue``
-    column of ``sample_definition_with_float``, filled from it."""
+    column of ``sample_definition_with_float``, filled from it. With
+    ``stack_p`` (a probability per stack), ``stacktrace`` codes are drawn
+    from ``len(stack_p)`` distinct stacks ``s0, s1, ...`` at those
+    probabilities, else every row holds the one stack ``stack``."""
     from frostdb_tpu_torch.columnbatch import (
         Column, ColumnBatch, KIND_DICT, KIND_FLOAT64, KIND_INT64,
     )
@@ -629,14 +650,20 @@ def build_table(db, name, n_parts, floats=None, seed=SEED):
         d_et.encode(["cpu"])
         codes = rng.integers(0, NUM_CODES, n).astype(np.int32)
         d_l.encode([f"g{i}" for i in range(NUM_CODES)])
-        d_st.encode(["stack"])
+        if stack_p is None:
+            d_st.encode(["stack"])
+            stacks = np.zeros(n, np.int32)
+        else:
+            if not len(d_st):
+                d_st.encode([f"s{i}" for i in range(len(stack_p))])
+            stacks = rng.choice(len(stack_p), n, p=stack_p).astype(np.int32)
         ts = rng.integers(0, 1000, n).astype(np.int64)
         val = rng.integers(0, 1000, n).astype(np.int64)
         ones = np.ones(n, bool)
         cols = [
             Column("example_type", KIND_DICT, np.zeros(n, np.int32), ones, d_et),
             Column("labels.label1", KIND_DICT, codes, ones, d_l),
-            Column("stacktrace", KIND_DICT, np.zeros(n, np.int32), ones, d_st),
+            Column("stacktrace", KIND_DICT, stacks, ones, d_st),
             Column("timestamp", KIND_INT64, ts, ones),
             Column("value", KIND_INT64, val, ones),
         ]
@@ -903,11 +930,11 @@ def float_sums(db, engine, generic, E, lit: int = 40) -> None:
     )
 
 
-def device_breakdown(runs, walls) -> None:
+def device_breakdown(runs, walls, top: int = 4) -> None:
     """Per query shape, one query under torch.profiler: the device's busy
     time (kernels and copies), its share of the median wall time, the
-    device-to-host copies and the largest device operations. ``runs`` is a
-    list of (name, fn running one query)."""
+    device-to-host copies and the ``top`` largest device operations.
+    ``runs`` is a list of (name, fn running one query)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -926,14 +953,14 @@ def device_breakdown(runs, walls) -> None:
         busy = sum(e.self_device_time_total for e in ops) / 1e3
         d2h = sum(e.self_device_time_total for e in ops if "DtoH" in e.key) / 1e3
         wall = statistics.median(walls[name])
-        top = sorted(ops, key=lambda e: -e.self_device_time_total)[:4]
+        largest = sorted(ops, key=lambda e: -e.self_device_time_total)[:top]
         log(
             f"engine {name}: device busy {busy:.3f} ms of a {wall:.3f} ms median "
             f"query (idle share {1 - busy / wall:.3f}); device-to-host copies "
             f"{d2h:.3f} ms; largest: "
             + "; ".join(
                 f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
-                for e in top
+                for e in largest
             )
         )
 
@@ -1569,6 +1596,431 @@ def join_phase(AK, db, engine, generic, data, total):
 
 
 # ---------------------------------------------------------------------------
+# Dense phase (slice 4): group-bys past the kernels' 2048 codes
+
+
+def stack_probabilities():
+    """Parca's stack frequencies, modelled as Zipf-like: the stack of rank r
+    is drawn with p proportional to 1 / r^STACK_ZIPF."""
+    p = 1.0 / np.arange(1, NUM_STACKS + 1, dtype=np.float64) ** STACK_ZIPF
+    return p / p.sum()
+
+
+def dense_literals(i):
+    """The dense shapes' literals for query number ``i``: timestamp >= ts,
+    and value >= value on the segment shape."""
+    return {"ts": 100 + 37 * i, "value": 300 + 41 * i}
+
+
+def dense_shapes(E, i, stacks="stacks", t="t"):
+    """The dense phase's query shapes for query number ``i``: (name, table,
+    fn(engine) -> query, route). Parca's merge (sum and count over a time
+    range by stacktrace, K = 131,072), its min/max, a (label, 20-unit
+    window of timestamp) group-by on the engine table (K = 64 x 64) and a
+    (label, stacktrace) group-by (K = 64 x 131,072)."""
+    ts, v = E.Col("timestamp"), E.Col("value")
+    lits = dense_literals(i)
+    stack, label = E.Col("stacktrace"), E.Col("labels.label1")
+    return [
+        ("dense_stack", stacks,
+         lambda e: e.scan_table(stacks).filter(ts.gt_eq(lits["ts"])).aggregate(
+             [E.Sum(v), E.Count(v)], [stack]),
+         "sorted"),
+        ("dense_stack_minmax", stacks,
+         lambda e: e.scan_table(stacks).filter(ts.gt_eq(lits["ts"])).aggregate(
+             [E.Min(v), E.Max(v)], [stack]),
+         "sorted"),
+        ("dense_segment", t,
+         lambda e: e.scan_table(t).filter(v.gt_eq(lits["value"])).aggregate(
+             [E.Sum(v), E.Count(v)], [label, E.Duration(DENSE_WINDOW)]),
+         "segment"),
+        ("dense_shuffle", stacks,
+         lambda e: e.scan_table(stacks).filter(ts.gt_eq(lits["ts"])).aggregate(
+             [E.Sum(v)], [label, stack]),
+         "shuffle"),
+    ]
+
+
+@contextlib.contextmanager
+def dense_route_probe():
+    """Record (route, K) of every dense-tier execution while the block runs:
+    "segment" (K <= 4096) or "sorted" for the [K] program, "shuffle" past
+    2^20 codes."""
+    from frostdb_tpu_torch.parallel import mesh_exec as ME
+
+    seen: list = []
+    cls = ME.MeshFilterAggregate
+    program, shuffle = cls._program, cls._execute_shuffle
+
+    def spy_program(self, sig, num_codes):
+        seen.append(("sorted" if num_codes > ME._SORTED_THRESHOLD else "segment", num_codes))
+        return program(self, sig, num_codes)
+
+    def spy_shuffle(self, parts, num_codes):
+        seen.append(("shuffle", num_codes))
+        return shuffle(self, parts, num_codes)
+
+    cls._program, cls._execute_shuffle = spy_program, spy_shuffle
+    try:
+        yield seen
+    finally:
+        cls._program, cls._execute_shuffle = program, shuffle
+
+
+@contextlib.contextmanager
+def capture_reductions():
+    """Record the arguments of every call of the dense tier's two reductions
+    (ops/kernels.py) while the block runs: {function name: [args]}."""
+    from frostdb_tpu_torch.ops import kernels as K
+
+    seen: dict = {"sorted_group_reduce": [], "dense_group_reduce": []}
+    saved = {name: getattr(K, name) for name in seen}
+
+    def recorder(name, fn):
+        def call(*args):
+            seen[name].append(args)
+            return fn(*args)
+
+        return call
+
+    for name, fn in saved.items():
+        setattr(K, name, recorder(name, fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(K, name, fn)
+
+
+def reduction_times(shape, captured) -> None:
+    """Device time of the dense tier's reductions on one query's inputs:
+    per function, all of the query's calls in a chain and alone, beside the
+    least time the card needs to read their inputs and write their outputs
+    once."""
+    from frostdb_tpu_torch.ops import kernels as K
+
+    for fname, calls in captured.items():
+        if not calls:
+            continue
+        fn = getattr(K, fname)
+
+        def run_all(fn=fn, calls=calls):
+            for a in calls:
+                fn(*a)
+
+        moved = 0
+        for a in calls:
+            out = fn(*a)
+            for t in [*_tensors(a), *_tensors(out if isinstance(out, tuple) else (out,))]:
+                moved += t.numel() * t.element_size()
+        log(
+            f"dense {shape}: {fname} x{len(calls)} (the query's calls over its parts), "
+            f"{chained_ms(run_all, reps=5, warm=1):.3f} ms in a chain, "
+            f"{cuda_ms(run_all, reps=5, warm=1):.3f} ms alone; bound "
+            f"{moved / HBM_BYTES_PER_S * 1e3:.3f} ms ({moved} bytes read and written once)"
+        )
+
+
+def scan_stream(table):
+    """(label codes, stack codes, timestamps, values) over the table's
+    visible parts in scan order, the stream whose first selected rows order
+    the groups."""
+    parts = table.collect_parts(table.db.high_watermark())
+    return tuple(
+        np.concatenate([p.batch.column(c).values for p in parts])
+        for c in ("labels.label1", "stacktrace", "timestamp", "value")
+    )
+
+
+def dense_reference(name, i, stream):
+    """A dense shape's output columns with numpy: group key codes (window
+    keys as values) and aggregates, groups in the order of their first
+    selected row in the scan stream."""
+    lab, stk, ts, val = stream
+    lits = dense_literals(i)
+    if name == "dense_segment":
+        m = val >= lits["value"]
+        key = lab[m].astype(np.int64) * 64 + ts[m] // DENSE_WINDOW
+        space = NUM_CODES * 64
+    elif name == "dense_shuffle":
+        m = ts >= lits["ts"]
+        key = lab[m].astype(np.int64) * NUM_STACKS + stk[m]
+        space = NUM_CODES * NUM_STACKS
+    else:
+        m = ts >= lits["ts"]
+        key = stk[m].astype(np.int64)
+        space = NUM_STACKS
+    x = val[m]
+    cnt = np.bincount(key, minlength=space)
+    first = np.full(space, len(key), np.int64)
+    np.minimum.at(first, key, np.arange(len(key), dtype=np.int64))
+    present = np.flatnonzero(cnt)
+    g = present[np.argsort(first[present], kind="stable")]
+    if name == "dense_stack_minmax":
+        mn = np.full(space, np.iinfo(np.int64).max)
+        mx = np.full(space, np.iinfo(np.int64).min)
+        np.minimum.at(mn, key, x)
+        np.maximum.at(mx, key, x)
+        aggs = [mn[g], mx[g]]
+    else:
+        s = np.bincount(key, weights=x, minlength=space).astype(np.int64)
+        aggs = [s[g]] if name == "dense_shuffle" else [s[g], cnt[g]]
+    if name == "dense_segment":
+        keys = [g // 64, (g % 64) * DENSE_WINDOW]
+    elif name == "dense_shuffle":
+        keys = [g // NUM_STACKS, g % NUM_STACKS]
+    else:
+        keys = [g]
+    return keys + aggs
+
+
+def raw_columns(batches):
+    """Per output column: its values over all batches (dictionary codes as
+    codes) and whether every slot is valid."""
+    if not batches:
+        return []
+    return [
+        (np.concatenate([np.asarray(b.columns[j].values) for b in batches]),
+         all(bool(np.asarray(b.columns[j].validity).all()) for b in batches))
+        for j in range(len(batches[0].columns))
+    ]
+
+
+def flat_columns(batches):
+    """Per output column over all batches: (name, kind, values, validity),
+    dictionary codes decoded to their strings."""
+    per_batch = batch_columns(batches)
+    if not per_batch:
+        return []
+    return [
+        (name, kind,
+         np.concatenate([b[j][2] for b in per_batch]),
+         np.concatenate([b[j][3] for b in per_batch]))
+        for j, (name, kind, _v, _m) in enumerate(per_batch[0])
+    ]
+
+
+def same_columns(a, b, renames=None) -> bool:
+    """The same columns (names, ``a``'s renamed by ``renames``), kinds,
+    validity and valid values, batch boundaries aside."""
+    fa, fb = flat_columns(a), flat_columns(b)
+    renames = renames or {}
+    if [(renames.get(n, n), k) for n, k, _v, _m in fa] != [(n, k) for n, k, _v, _m in fb]:
+        return False
+    return all(
+        np.array_equal(ma, mb) and np.array_equal(va[ma], vb[mb])
+        for (_n, _k, va, ma), (_n2, _k2, vb, mb) in zip(fa, fb)
+    )
+
+
+def dense_phase(AK, db, engine, generic, n_parts):
+    """Slice 4's path: Parca's by-stacktrace merge and three more group-bys
+    past the kernels' 2048 codes, on a table ``stacks`` built like the
+    engine table but with Zipf-distributed stacktraces. Each shape once with
+    the launch counts set to 0 before and read after (no K1-K6 may run),
+    served by the dense tier on its route, equal to numpy at full width and
+    to the generic DAG on a 2-part table; then timed over QUERY_REPS
+    queries with varying literals, profiled, and the sorted and segment
+    reductions timed on one query's inputs."""
+    import torch
+
+    from frostdb_tpu_torch.query import expr as E
+
+    t0 = time.perf_counter()
+    p = stack_probabilities()
+    stacks, _data = build_table(db, "stacks", n_parts, seed=SEED + 4, stack_p=p)
+    build_table(db, "stacks2", 2, seed=SEED + 5, stack_p=p)
+    streams = {"stacks": scan_stream(stacks), "t": scan_stream(db.get_table("t"))}
+    parts = stacks.collect_parts(db.high_watermark())
+    stk = streams["stacks"][1]
+    log(
+        f"dense tables: stacks {n_parts} x {ROWS_PER_PART} rows in {len(parts)} visible "
+        f"parts ({sum(q.device().n_pad for q in parts)} rows padded), "
+        f"{len(np.unique(stk))} of {NUM_STACKS} stacks present, the most frequent in "
+        f"{np.bincount(stk).max() / len(stk):.4f} of rows; stacks2 2 x {ROWS_PER_PART} rows; "
+        f"built in {time.perf_counter() - t0:.1f} s"
+    )
+    for _name, _table, make_q, _r in dense_shapes(E, 0):
+        run_shape(engine, make_q)
+    torch.cuda.synchronize()
+
+    AK.reset_launches()
+    results = []
+    with dense_route_probe() as routes:
+        for name, table, make_q, route in dense_shapes(E, 0):
+            n_seen = len(routes)
+            out = run_shape(engine, make_q)
+            if engine.last_serving_path != "dense":
+                raise AssertionError(f"{name}: served by {engine.last_serving_path}: {engine.last_fallback_reasons}")
+            taken = routes[n_seen:]
+            if {r for r, _k in taken} != {route}:  # the [K] program: once per part
+                raise AssertionError(f"{name}: routes {taken}, expected {route}")
+            results.append((name, table, route, out, taken[0][1]))
+    launches = dict(AK.LAUNCHES)
+    log(f"main path launches (dense shapes): {json.dumps(launches)}")
+    if any(launches.values()):
+        raise AssertionError("a K1-K6 kernel was launched on the dense shapes")
+
+    on_small = {name: make_q for name, _t, make_q, _r in dense_shapes(E, 0, "stacks2", "t2")}
+    for name, table, route, out, k in results:
+        got = raw_columns(out)
+        want = dense_reference(name, 0, streams[table])
+        if len(got) != len(want) or not all(
+            valid and np.array_equal(v.astype(np.int64), w) for (v, valid), w in zip(got, want)
+        ):
+            raise AssertionError(f"{name}: result differs from the numpy reference")
+        run_shape(engine, on_small[name])  # the first query uploads the table
+        t1 = time.perf_counter()
+        fast = run_shape(engine, on_small[name])
+        t2 = time.perf_counter()
+        path = engine.last_serving_path
+        slow = run_shape(generic, on_small[name])
+        t3 = time.perf_counter()
+        if path != "dense" or generic.last_serving_path != "generic":
+            raise AssertionError(f"{name} on the 2-part table: paths {path}/{generic.last_serving_path}")
+        if not same_columns(fast, slow):
+            raise AssertionError(f"{name}: the dense tier and the generic DAG differ on the 2-part table")
+        log(
+            f"{name}: K={k} ({route} route), "
+            f"{len(want[0])} groups == numpy at full width; on the 2-part table the dense "
+            f"tier == the generic DAG, rows and order ({sum(b.num_rows for b in fast)} groups; "
+            f"dense {(t2 - t1) * 1e3:.1f} ms, generic DAG {t3 - t2:.2f} s)"
+        )
+
+    walls: dict = {}
+    for i in range(QUERY_REPS):
+        for name, _table, make_q, _route in dense_shapes(E, i):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            run_shape(engine, make_q)
+            walls.setdefault(name, []).append((time.perf_counter() - t1) * 1e3)
+            if engine.last_serving_path != "dense":
+                raise AssertionError(f"{name} #{i}: served by {engine.last_serving_path}")
+    for name, w in walls.items():
+        log(
+            f"engine {name}: median {statistics.median(w):.3f} ms, "
+            f"min {min(w):.3f} ms over {len(w)} queries of {n_parts * ROWS_PER_PART} rows"
+        )
+    device_breakdown(
+        [(name, lambda m=make_q: run_shape(engine, m)) for name, _t, make_q, _r in dense_shapes(E, 0)],
+        walls, top=8,
+    )
+    for name, _table, make_q, _route in dense_shapes(E, 0):
+        if name in ("dense_stack", "dense_stack_minmax", "dense_segment"):
+            with capture_reductions() as captured:
+                run_shape(engine, make_q)
+            reduction_times(name, captured)
+    log(f"dense phase: {time.perf_counter() - t0:.1f} s")
+    return launches, {}
+
+
+# ---------------------------------------------------------------------------
+# SQL part: every phase's shapes once more as SQL text
+
+
+def sql_texts(lit, i):
+    """Each engine shape as SQL text (aggregate shapes at ``lit``, the rest
+    at query number ``i``), or None where SQL has no form for it."""
+    j, d = join_literals(i), dense_literals(i)
+    low = 5 + i % 3
+    by_label = "group by labels.label1"
+    return {
+        "band_ts_ge": f"select labels.label1, sum(value), count(value) where timestamp >= {lit} {by_label}",
+        "band3_dict_eq": (f"select labels.label1, sum(value) where timestamp >= {lit} and "
+                          f"timestamp < {lit + 600} and example_type = 'cpu' {by_label}"),
+        "int_eq": f"select labels.label1, sum(value), count(value) where value = {lit} {by_label}",
+        "or": (f"select labels.label1, sum(value), count(value) where timestamp < {lit} or "
+               f"timestamp >= {lit + 800} {by_label}"),
+        "min_max": f"select labels.label1, min(value), max(value) where timestamp >= {lit} {by_label}",
+        "scan_value_gt": f"select example_type, value where value > {995 - i % 3}",
+        "scan_label_band_limit": (f"select labels.label1, timestamp, value where labels.label1 = "
+                                  f"'g{(7 + i) % NUM_CODES}' and timestamp >= 500 limit 1000"),
+        "scan_or": f"select value where timestamp < {low} or timestamp >= {990 + low}",
+        "scan_or_value": f"select timestamp where value < {low} or value >= {990 + low}",
+        "distinct_values": "select distinct(labels.label1)",
+        "distinct_types": f"select distinct(example_type, value > {500 + i})",
+        "schema_labels": None,
+        "join_agg": (f"select labels.label1, sum(weight) from t inner join dims on labels.label1 "
+                     f"where timestamp >= {j['ts']} {by_label}"),
+        "join_all_aggs": (f"select labels.label1, count(value), sum(value), sum(weight), min(weight), "
+                          f"max(weight) from t inner join dims_dup on labels.label1 where "
+                          f"timestamp >= {j['ts']} {by_label}"),
+        # SQL cannot filter a join's build side: the forms join dims whole,
+        # the same build side as the API form's weight >= W where W is 0
+        "join_semi": (f"select labels.label1, count(value) from t semi join dims using (labels.label1) {by_label}"
+                      if j["weight"] == 0 else None),
+        "join_anti": (f"select labels.label1, count(value) from t anti join dims using (labels.label1) {by_label}"
+                      if j["weight"] == 0 else None),
+        "join_left_outer": (f"select labels.label1, count(value), sum(weight), sum(value) from t left "
+                            f"outer join dims on labels.label1 where timestamp >= {j['ts']} {by_label}"),
+        "join_int_key": (f"select labels.label1, count(value), sum(w), sum(value) from t inner join "
+                         f"idims on timestamp where value < {j['value_lt']} {by_label}"),
+        "join_rows": (f"select labels.label1, value, weight from t inner join dims_dup on labels.label1 "
+                      f"where value > {j['value_gt']}"),
+        "dense_stack": f"select stacktrace, sum(value), count(value) where timestamp >= {d['ts']} group by stacktrace",
+        "dense_stack_minmax": (f"select stacktrace, min(value), max(value) where timestamp >= {d['ts']} "
+                               f"group by stacktrace"),
+        # SQL's windows are whole seconds (second(n)); a 20-unit window is
+        # the projected key (timestamp / 20) * 20, emitted as "bucket"
+        "dense_segment": (f"select labels.label1, (timestamp / {DENSE_WINDOW}) * {DENSE_WINDOW} as bucket, "
+                          f"sum(value), count(value) where value >= {d['value']} group by labels.label1, bucket"),
+        "dense_shuffle": (f"select labels.label1, stacktrace, sum(value) where timestamp >= {d['ts']} "
+                          f"group by labels.label1, stacktrace"),
+    }
+
+
+SQL_RENAMES = {"dense_segment": {"timestamp": "bucket"}}
+SQL_NOTES = {
+    "join_semi": "SQL joins dims whole; the API form's build-side weight >= 0 keeps every row",
+    "join_anti": "SQL joins dims whole; the API form's build-side weight >= 0 keeps every row",
+    "dense_segment": "SQL names the 20-unit window key bucket",
+}
+SQL_NOT_EXPRESSIBLE = {
+    "schema_labels": "a schema scan (scan_schema): the SQL front end scans tables only",
+    "join_semi": "a filtered build side: SQL joins a table by name",
+    "join_anti": "a filtered build side: SQL joins a table by name",
+}
+
+
+def sql_part(engine, lit: int = 40):
+    """Every phase's engine shapes once more as SQL text through the port's
+    sqlparse, untimed: the same serving tier and the same rows (columns,
+    order, kinds, nulls) as the same shape through the query API."""
+    from frostdb_tpu_torch.query import expr as E
+    from frostdb_tpu_torch.sqlparse import Parser
+
+    t0 = time.perf_counter()
+    texts = sql_texts(lit, 0)
+    forms = [
+        (name, "t", lambda e, f=filt, a=aggs: e.scan_table("t").filter(f).aggregate(
+            a, [E.Col("labels.label1")]))
+        for name, filt, aggs, _k in shapes(E, lit)
+    ]
+    forms += [(name, "t", make_q) for name, make_q, _t, _k in scan_shapes(E, 0)]
+    forms += [(name, "t", make_q) for name, make_q, _t, _k in join_shapes(E, 0)]
+    forms += [(name, table, make_q) for name, table, make_q, _r in dense_shapes(E, 0)]
+    n_checked = 0
+    for name, table, make_q in forms:
+        sql = texts[name]
+        if sql is None:
+            log(f"sql {name}: not expressible in SQL ({SQL_NOT_EXPRESSIBLE[name]})")
+            continue
+        want = run_shape(engine, make_q)
+        path = engine.last_serving_path
+        res = Parser().parse(engine.scan_table(table), ["labels"], sql)
+        got = []
+        res.plan.execute(got.append)
+        if engine.last_serving_path != path:
+            raise AssertionError(f"sql {name}: served by {engine.last_serving_path}, the API form by {path}")
+        if not same_columns(want, got, SQL_RENAMES.get(name)):
+            raise AssertionError(f"sql {name}: rows differ from the API form")
+        n_checked += 1
+        note = f" ({SQL_NOTES[name]})" if name in SQL_NOTES else ""
+        log(f"sql {name}: {path}, {sum(b.num_rows for b in got)} rows == the API form{note}: {sql}")
+    log(f"sql part: {n_checked} shapes as SQL text, same tier and rows, {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # Kernel bench phase (K5)
 
 
@@ -1646,6 +2098,21 @@ def k5_bench_phase(AK, dev):
     return launches, captured
 
 
+def package_line() -> str:
+    """Whether the modules the durability (pyarrow) and plan-protocol (grpc)
+    slices need import here, with their versions."""
+    import importlib
+
+    found = []
+    for name in ("pyarrow", "grpc"):
+        try:
+            mod = importlib.import_module(name)
+            found.append(f"{name} {getattr(mod, '__version__', '(no version)')} imports")
+        except Exception as e:  # any failure means the slice cannot run here
+            found.append(f"{name} does not import ({type(e).__name__}: {e})")
+    return "packages: " + "; ".join(found)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
@@ -1653,6 +2120,7 @@ def main() -> int:
         help="inserts of 2^21 rows in the engine table (bench.py: 32)",
     )
     args = ap.parse_args()
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1675,6 +2143,7 @@ def main() -> int:
         [AK._nvcc(), "--version"], capture_output=True, text=True, check=True
     ).stdout.strip().splitlines()[-1]
     log(f"{smi}; python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}, nvcc: {nvcc}")
+    log(package_line())
     t0 = time.perf_counter()
     libs = AK.build()
     log(f"built {', '.join(libs.values())} in {time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
@@ -1684,20 +2153,24 @@ def main() -> int:
     errs = kernel_phase(AK, dev, total)
     torch.cuda.empty_cache()
     launches, captured, (db, engine, generic, data) = engine_phase(AK, args)
-    for more_launches, more_captured in (
-        scan_distinct_phase(AK, db, engine, generic, data, total),
-        join_phase(AK, db, engine, generic, data, total),
-        k5_bench_phase(AK, dev),
+    for phase in (
+        lambda: scan_distinct_phase(AK, db, engine, generic, data, total),
+        lambda: join_phase(AK, db, engine, generic, data, total),
+        lambda: dense_phase(AK, db, engine, generic, args.parts),
+        lambda: k5_bench_phase(AK, dev),
     ):
+        more_launches, more_captured = phase()
         for k, n in more_launches.items():
             launches[k] += n
-        for (name, shape), args in more_captured.items():
-            keep_captures(captured, shape, [(name, args)])
+        for (name, shape), kargs in more_captured.items():
+            keep_captures(captured, shape, [(name, kargs)])
+    sql_part(engine)
     live_rows = {k: total for k in KERNELS}
     live_rows["filter_group_sum_count"] = BENCH_ROWS
     rows = main_path_kernels(AK, captured, errs, launches, live_rows)
     if {r["name"] for r in rows} != set(KERNELS):
         raise AssertionError(f"kernels line lacks {set(KERNELS) - {r['name'] for r in rows}}")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({

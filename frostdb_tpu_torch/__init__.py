@@ -15,10 +15,11 @@ lives on. The default is ``"cuda"``, which raises when no GPU is visible;
 pass ``device="cpu"`` to run on the CPU.
 
 Ported so far: in-memory tables, the planner and generic operator DAG
-(joins included), and the ``compiled``, ``compiled_join``,
-``compiled_distinct``, ``schema_meta`` and ``compiled_scan`` serving tiers.
-Persistence, the ``dense`` tier, SQL, the plan protocol and multi-device
-execution are not ported yet.
+(joins included), the ``compiled``, ``compiled_join``, ``dense``,
+``compiled_distinct``, ``schema_meta`` and ``compiled_scan`` serving tiers,
+the SQL front end (``sqlparse``) and the logic-test runner
+(``logictest``). Persistence, the plan protocol and multi-device execution
+are not ported yet.
 """
 
 from .schema import (

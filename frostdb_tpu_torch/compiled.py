@@ -208,7 +208,8 @@ class _ValuePlan:
     fexact_top_digits: int = 1
     # Non-integral float64 min/max: order via the monotone int64 bit
     # transform (k = bits ^ ((bits >> 63) & 0x7FF..F)) — served by the
-    # int64-native dense/mesh tiers (not ported); the compiled tier declines.
+    # int64-native dense tier (parallel/mesh_exec.py); the compiled tier
+    # declines.
     fmm: bool = False
     # Virtual plane source (the join->aggregate fusion, compiled_join.py):
     #   None                     a real part column (the default)
@@ -725,13 +726,20 @@ class CompiledFilterAggregate:
     REMAP_THRESHOLD = 2048
 
     def _col_presence(self, parts, name: str) -> np.ndarray:
-        pres: Optional[np.ndarray] = None
+        """The sorted codes present in the column over ``parts``: the union
+        of the parts' presence sets, marked in one bitmap over the codes
+        (a pairwise ``np.union1d`` would re-sort the growing union once per
+        part, which dominates a query over a large dictionary)."""
+        sets = []
         for p in parts:
             cp = p.code_presence(name)
             if cp is None:
                 raise NotCompilable(f"{name} lacks code presence")
-            pres = cp if pres is None else np.union1d(pres, cp)
-        return pres if pres is not None else np.zeros(0, dtype=np.int64)
+            sets.append(cp)
+        seen = np.zeros(max((int(s[-1]) + 1 for s in sets if len(s)), default=0), np.bool_)
+        for s in sets:
+            seen[s] = True
+        return np.flatnonzero(seen)
 
     def _int_group_plan(self, parts, gcol0: _GroupCol) -> _GroupCol:
         """Range-dense code plan for an int64 (possibly windowed) group
@@ -1520,14 +1528,25 @@ class CompiledFilterAggregate:
         ):
             return self._execute()
 
-    def _execute(self) -> ColumnBatch:
+    def _visible_parts(self) -> list:
+        """The table's parts visible at the high watermark. Persisted
+        blocks take part as cached device-resident parts (store.go:123's
+        cache/dedup), so the tiers stay on after block rotation; a source
+        without the block API declines the tier."""
+        from .table import SourceWithoutBlockAPI
+
         tx = (
             self.table.db.high_watermark()
             if self.table.db is not None
             else 2**63
         )
-        parts = self.table.collect_parts(tx)
-        parts = self._filter_parts(parts)
+        try:
+            return self.table.collect_parts(tx, include_sources=True)
+        except SourceWithoutBlockAPI:
+            raise NotCompilable("a data source lacks the block API")
+
+    def _execute(self) -> ColumnBatch:
+        parts = self._filter_parts(self._visible_parts())
         self._check_parts(parts)
         self._gplan, num_codes = self._group_remap(parts)
         plans = list(self.value_plans.values())

@@ -201,18 +201,8 @@ class CompiledScan(CompiledFilterAggregate):
 
     def _execute_into(self, callback) -> None:
         from .columnbatch import KIND_DICT, KIND_INT64
-        from .table import SourceWithoutBlockAPI
 
-        tx = (
-            self.table.db.high_watermark()
-            if self.table.db is not None
-            else 2**63
-        )
-        try:
-            parts = self.table.collect_parts(tx, include_sources=True)
-        except SourceWithoutBlockAPI:
-            raise NotCompilable("a data source lacks the block API")
-        parts = self._filter_parts(parts)
+        parts = self._filter_parts(self._visible_parts())
         # Column-kind validation against the leaves (the aggregate path's
         # gate minus group/value checks).
         for p in parts:

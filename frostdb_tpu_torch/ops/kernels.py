@@ -406,6 +406,85 @@ def distinct_rows(key_vals, key_valid, sel):
 
 
 # ---------------------------------------------------------------------------
+# Dense-code reductions: group keys combined into one dense code space
+# [0, num_codes); each code's partials land in a [num_codes] table. The
+# dense serving tier (parallel/mesh_exec.py) runs these per part.
+
+# "No selected row" sentinel of sorted_group_reduce's first row and min/max
+# (the reference's +-2^62 headroom convention).
+_INT64_BIG = 2**62
+
+
+def sorted_group_reduce(codes, sel, rows, vals, num_codes: int, ops: tuple):
+    """Dense [num_codes] group reduction via sort + prefix sums — the
+    large-K path: one stable sort of the rows by code, segment bounds by
+    ``searchsorted``, sums as differences of int64 prefix sums.
+
+    codes [N] int32, sel [N] bool, rows [N] int64 ascending stream
+    positions, vals: tuple of [N] int64 value vectors, ops: per-val
+    AGG_SUM/MIN/MAX.
+
+    Returns (counts [K] i64, first [K] i64 with a 2^62 sentinel, outs):
+    - sums are differences of wrapping int64 prefix sums, so each equals
+      the true segment sum mod 2^64, as the generic engine's wrapping adds
+      give it;
+    - min/max take the first/last element of each segment sorted by
+      (code, value) (a stable sort by value, then by code); empty segments
+      hold +-2^62.
+    Since ``rows`` ascend, one stable sort by code orders (code, row)."""
+    n = codes.shape[0]
+    dev = codes.device
+    big = torch.full((), _INT64_BIG, dtype=torch.int64, device=dev)
+    key = torch.where(sel, codes.to(torch.int64), num_codes)
+    order = torch.sort(key, stable=True).indices
+    key_s = key[order]
+    rows_s = rows[order]
+    ks = torch.arange(num_codes, dtype=torch.int64, device=dev)
+    start = torch.searchsorted(key_s, ks, side="left")
+    end = torch.searchsorted(key_s, ks, side="right")
+    counts = end - start
+    has = counts > 0
+    first = torch.where(has, rows_s[torch.clamp(start, max=n - 1)], big)
+    live = key_s < num_codes
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    outs: list = [None] * len(ops)
+    for i, op in enumerate(ops):
+        v = vals[i]
+        if op == AGG_SUM:
+            ps = torch.cumsum(torch.where(live, v[order], zero), 0)
+            ps0 = torch.cat([zero.reshape(1), ps])
+            outs[i] = ps0[end] - ps0[start]
+            continue
+        by_v = torch.sort(v, stable=True).indices
+        order2 = by_v[torch.sort(key[by_v], stable=True).indices]
+        v2 = v[order2]
+        if op == AGG_MIN:
+            outs[i] = torch.where(has, v2[torch.clamp(start, max=n - 1)], big)
+        else:
+            outs[i] = torch.where(has, v2[torch.clamp(end - 1, min=0)], -big)
+    return counts, first, tuple(outs)
+
+
+def dense_group_reduce(codes, vals, sel, num_codes: int, op: str):
+    """Per-code reduction into a dense [num_codes] table: unselected rows
+    reduce into one extra segment that is cut off, so no identity competes
+    with a selected value; empty codes hold 0 (sum, count) or the dtype's
+    extreme (min: its maximum, max: its minimum)."""
+    c = torch.where(sel, codes.to(torch.int64), num_codes)
+    if op == AGG_COUNT:
+        return _segment(sel.to(torch.int64), c, num_codes + 1, "sum")[:num_codes]
+    if op == AGG_SUM:
+        return _segment(
+            torch.where(sel, vals, torch.zeros_like(vals)), c, num_codes + 1, "sum"
+        )[:num_codes]
+    if op == AGG_MIN:
+        return _segment(vals, c, num_codes + 1, "amin")[:num_codes]
+    if op == AGG_MAX:
+        return _segment(vals, c, num_codes + 1, "amax")[:num_codes]
+    raise ValueError(op)
+
+
+# ---------------------------------------------------------------------------
 # Hash-join expansion (the single-device CSR join behind query/join.py)
 
 

@@ -1,0 +1,799 @@
+"""Mesh execution of the fused filter + group-by aggregate, and the engine's
+``dense`` tier (reference: frostdb_tpu/parallel/mesh_exec.py).
+
+The compiled tier's matched query shape (``compiled.match_plan``) executes
+part by part as int64 programs over dense group codes —
+
+  per part:    selection mask (the full compiled filter envelope: AND of
+               OR-clauses of int64 compares, dict/string predicates as
+               boolean-LUT gathers, ==/!= null via validity) -> dense
+               per-code partials (segment reductions below 4096 codes,
+               sort + prefix sums above; the non-final HashAggregate,
+               aggregate.go:124)
+  across parts: the [K] partials accumulate on the device; one result
+               blob comes back per query.
+
+Results are identical to the generic engine's, group emission order
+included: each part program reduces the exact first selected row per
+code, parts accumulate the minimum global stream position (a part's rows
+start at the sum of the live rows of the parts before it; padding rows
+never select and never move an offset), and groups emit in that
+first-occurrence order (or key order under ordered_aggregations).
+
+Value columns reduce natively in int64: sums, min/max and integral
+float64 columns. Non-integral float64 sums ride four exact digit planes
+(floatsum.py) recombined on the host; float64 min/max reduce the monotone
+int64 ordering key ``bits ^ ((bits >> 63) & 0x7FF..F)``, inverted on the
+host.
+
+Past 2^20 codes the query takes the shuffle route: a local sparse
+sort-reduce of each part's selected rows into (code, count, first,
+partials) pairs, scattered into [K]-sized owner tables carried across
+parts, up to 2^27 codes. Past that the generic engine serves.
+
+This package runs on one device: the cross-device combines of the
+reference's programs (psum/pmin/pmax, the all_to_all pair exchange) are
+identities on a one-device mesh, and ``DenseLocalAggregate`` — the
+engine's ``dense`` tier between ``compiled_join`` and
+``compiled_distinct`` — is the only entry point. Every reduction is a
+torch op on the table's device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..compiled import (
+    CompiledFilterAggregate,
+    NotCompilable,
+    _CMP_OPS,
+    _take_clip,
+    emit_output,
+)
+from ..ops import kernels as K
+from ..query import expr as E
+
+# Sentinel for "no selected row yet" stream positions / min partials — the
+# headroom convention of ops/kernels.sorted_group_reduce (values past 2^62
+# fall back to the generic engine, see _execute's range guard).
+_BIG = 2**62
+_I64_MAX = 2**63 - 1
+_I64_MIN = -(2**63)
+
+# Past this many codes the program reduces via sort + prefix sums
+# (kernels.sorted_group_reduce) instead of scatter segment reductions.
+_SORTED_THRESHOLD = 4096
+
+# Shuffle-route ceiling: up to 2^27 combined codes aggregate through the
+# sparse pair reduce into [K] owner tables; beyond that the generic engine
+# serves.
+SHUFFLE_MAX_CODES = 1 << 27
+
+
+def _op_width(func, fexact: bool) -> int:
+    """Number of [K] partial vectors one aggregation spec contributes:
+    exact-float sums carry 4 digit planes; unique carries (min, max,
+    valid-count); everything else (incl. count, which re-emits the shared
+    counts) carries one."""
+    if fexact:
+        return 4
+    if func == E.AGG_UNIQUE:
+        return 3
+    return 1
+
+
+def _unpack_inputs(xs, gshape, clause_sigs, ops):
+    """Shared input unpacking for the dense and shuffle part programs:
+    group-code build (dict remaps / window codes), CNF selection mask,
+    stream positions, and the per-aggregation value list (incl. exact-float
+    digit planes). Returns (next_arg_index, gcodes, sel, rows, vlist, vops,
+    vfmm)."""
+    n = xs[0]
+    i = 1
+    gcodes = None
+    gvalid = None
+    for kind, has_remap, k in gshape:
+        if kind == "int":
+            raw, v, win, base = xs[i], xs[i + 1], xs[i + 2], xs[i + 3]
+            i += 4
+            # floor division: window codes of negative values round down
+            c = torch.div(raw, win, rounding_mode="floor") - base
+            c = torch.clamp(c, 0, k - 1).to(torch.int32)
+        else:
+            c, v = xs[i], xs[i + 1]
+            i += 2
+            if has_remap:
+                c = _take_clip(xs[i], c)
+                i += 1
+        gcodes = c if gcodes is None else gcodes * k + c
+        gvalid = v if gvalid is None else gvalid & v
+    m = gcodes.shape[0]
+    rows = torch.arange(m, dtype=torch.int64, device=gcodes.device)
+    sel = gvalid & (rows < n)
+    for clause_sig in clause_sigs:
+        if clause_sig == "true":
+            continue
+        if clause_sig == "false":
+            sel = torch.zeros_like(sel)
+            continue
+        cmask = None
+        for leaf_sig in clause_sig:
+            if leaf_sig[0] == "int":
+                fv, fvalid, lit = xs[i], xs[i + 1], xs[i + 2]
+                i += 3
+                lm = _CMP_OPS[leaf_sig[1]](fv, lit) & fvalid
+            elif leaf_sig[0] == "nulllit":
+                fvalid = xs[i]
+                i += 1
+                lm = fvalid if leaf_sig[1] == E.OP_NOT_EQ else ~fvalid
+            else:
+                fcodes, fvalid, lut = xs[i], xs[i + 1], xs[i + 2]
+                i += 3
+                lm = (_take_clip(lut, fcodes) != 0) & fvalid
+            cmask = lm if cmask is None else (cmask | lm)
+        sel = sel & cmask
+    vlist = []
+    vops = []
+    vfmm = []
+    for func, _is_float, fexact, fmm in ops:
+        if func == E.AGG_COUNT:
+            continue
+        if fexact:
+            for _p in range(4):
+                vlist.append(xs[i].to(torch.int64))
+                vops.append(K.AGG_SUM)
+                vfmm.append(False)
+                i += 1
+            continue
+        v, vvalid = xs[i], xs[i + 1]
+        i += 2
+        if func == E.AGG_UNIQUE:
+            # unique = (min == max) & (valid-slot count == group count);
+            # three plain reductions (kernels.segment_agg AGG_UNIQUE
+            # decomposed), combined in the host epilogue.
+            v64 = v.to(torch.int64)
+            vlist += [v64, v64, vvalid.to(torch.int64)]
+            vops += [K.AGG_MIN, K.AGG_MAX, K.AGG_SUM]
+            vfmm += [False, False, False]
+            continue
+        if func == E.AGG_AND:
+            # and = per-group min of (valid ? v : 1) — nulls true-neutral
+            # (aggregate.go:798).
+            vlist.append(torch.where(vvalid, v.to(torch.int64), 1))
+            vops.append(K.AGG_MIN)
+            vfmm.append(False)
+            continue
+        vlist.append(v.to(torch.int64))
+        vops.append(func)
+        vfmm.append(fmm)
+    return i, gcodes, sel, rows, vlist, vops, vfmm
+
+
+class MeshFilterAggregate(CompiledFilterAggregate):
+    """One matched query over one table, executed over a mesh.
+
+    Inherits the compiled path's plan validation, part pruning
+    (_filter_parts), dictionary LUTs (_leaf_lut_np) and output emission;
+    only the device execution differs: per-part programs with int64
+    reductions. On a one-device mesh, the only one this package has,
+    every cross-shard combine is the identity.
+    """
+
+    MAX_CODES = 1 << 20
+
+    def __init__(self, spec, mesh, axis: str = "shards"):
+        super().__init__(
+            spec.table,
+            spec.group_col,
+            spec.aggs,
+            spec.filter,
+            spec.output_projection,
+            ordered=spec.ordered,
+            filter_expr=spec.filter_expr,
+        )
+        self.mesh = mesh
+        self.axis = axis
+        if mesh.shape[axis] != 1:
+            raise NotImplementedError("multi-device meshes are not ported")
+
+    def _part_data(self, part):
+        """The part's device mirror: the compiled path's ``part.device()``
+        cache, so one upload serves both tiers."""
+        return part.device()
+
+    # ------------------------------------------------------------------
+
+    def _clause_layout(self, part) -> list:
+        """Per-part static resolution of the CNF clauses: each entry is
+        "true" (a missing all-true leaf makes the whole OR clause a no-op),
+        "false" (every leaf missing and false — unreachable through
+        _filter_parts, kept for direct callers), or a list of
+        (leaf_index, sig) for the leaves present in the part."""
+        from ..compiled import _missing_leaf_all_true
+
+        layout = []
+        for idxs in self.clauses:
+            static_true = False
+            present: list = []
+            for i in idxs:
+                leaf = self.filters[i]
+                if part.batch.column(leaf.column) is None:
+                    if _missing_leaf_all_true(leaf):
+                        static_true = True
+                        break
+                    continue
+                if leaf.kind == "int":
+                    present.append((i, ("int", leaf.op)))
+                elif leaf.lit is None:
+                    present.append((i, ("nulllit", leaf.op)))
+                else:
+                    present.append((i, ("dict",)))
+            if static_true:
+                layout.append("true")
+            elif not present:
+                layout.append("false")
+            else:
+                layout.append(present)
+        return layout
+
+    def _part_signature(self, part) -> tuple:
+        """Static program structure for one part: the clause layout (which
+        filter leaves are present — missing dynamic columns resolve
+        statically), the group-key plan shape, and the aggregation op
+        list."""
+        clause_sigs = tuple(
+            lay
+            if isinstance(lay, str)
+            else tuple(sig for _i, sig in lay)
+            for lay in self._clause_layout(part)
+        )
+        ops = tuple(
+            (
+                spec.func,
+                self.value_plans[spec.column].is_float,
+                spec.func == E.AGG_SUM
+                and self.value_plans[spec.column].fexact is not None,
+                spec.func in (E.AGG_MIN, E.AGG_MAX)
+                and self.value_plans[spec.column].fmm,
+            )
+            if spec.func != E.AGG_COUNT
+            else (E.AGG_COUNT, False, False, False)
+            for spec in self.aggs
+        )
+        gshape = tuple(
+            (gcol.kind, gcol.remap is not None, gcol.k)
+            for gcol in self._gplan
+        )
+        return (clause_sigs, ops, gshape)
+
+    def _program(self, sig: tuple, num_codes: int):
+        """One part's dense program: (counts, first, per-agg partials) as
+        [num_codes] int64 tensors. Plain torch ops: there is nothing to
+        compile, so programs are not cached."""
+        clause_sigs, ops, gshape = sig
+
+        def step(*xs):
+            # xs layout: n, then per group col (dict: codes, valid, [remap]
+            # | int: values, valid, window, base), then per present leaf
+            # (int: fvals,fvalid,lit | nulllit: fvalid | dict:
+            # fcodes,fvalid,lut), then per non-count agg (vals, vvalid /
+            # fexact: 4 digit planes) — unpacked by _unpack_inputs.
+            _i, c32, sel, rows, vlist, vops, vfmm = _unpack_inputs(
+                xs, gshape, clause_sigs, ops
+            )
+            fmm_global: dict = {}
+            if num_codes > _SORTED_THRESHOLD:
+                # Large K: one sort + prefix sums. Its min/max take the
+                # segment's first/last SORTED element, so full-range
+                # monotone float keys (fmm) are sentinel-safe — but EMPTY
+                # groups hold the +-2^62 identity, which transformed keys
+                # can exceed; widen those slots to the int64 extremes
+                # before the cross-part accumulate.
+                counts, first, outs_l = K.sorted_group_reduce(
+                    c32, sel, rows, tuple(vlist), num_codes, tuple(vops)
+                )
+                partials = list(outs_l)
+                for vi2, (func, fmm) in enumerate(zip(vops, vfmm)):
+                    if fmm:
+                        ident = _I64_MAX if func == K.AGG_MIN else _I64_MIN
+                        partials[vi2] = torch.where(
+                            counts > 0, partials[vi2], ident
+                        )
+            else:
+                counts = K.dense_group_reduce(
+                    c32, None, sel, num_codes, K.AGG_COUNT
+                )
+                first = K.dense_group_reduce(
+                    c32, rows, sel, num_codes, K.AGG_MIN
+                )
+                partials = []
+                for vi2, (v, func) in enumerate(zip(vlist, vops)):
+                    if vfmm[vi2]:
+                        # Monotone float keys span the full int64 range;
+                        # reduce lexicographically as (hi, lo) int32-range
+                        # halves (the compiled wide-min/max pattern).
+                        hi = v >> 32
+                        lo = v & 0xFFFFFFFF
+                        g_hi = K.dense_group_reduce(
+                            c32, hi, sel, num_codes, func
+                        )
+                        sel2 = sel & (hi == _take_clip(g_hi, c32))
+                        g_lo = K.dense_group_reduce(
+                            c32, lo, sel2, num_codes, func
+                        )
+                        fmm_global[vi2] = (g_hi << 32) | g_lo
+                        partials.append(None)
+                        continue
+                    partials.append(
+                        K.dense_group_reduce(c32, v, sel, num_codes, func)
+                    )
+            outs = [counts, first]
+            vi = 0
+            for func, _is_float, fexact, fmm in ops:
+                if func == E.AGG_COUNT:
+                    outs.append(counts)
+                    continue
+                width = _op_width(func, fexact)
+                if fmm and vi in fmm_global:
+                    # empty groups clamp so the cross-part accumulate never
+                    # sees wrapped sentinels
+                    ident = _I64_MAX if func == E.AGG_MIN else _I64_MIN
+                    outs.append(torch.where(counts > 0, fmm_global[vi], ident))
+                else:
+                    outs += partials[vi : vi + width]
+                vi += width
+            return tuple(outs)
+
+        return step
+
+    def _part_args(self, part, sp) -> list:
+        """Flat argument list matching ``_part_signature``'s layout."""
+        args = [part.batch.num_rows]
+        for gcol in self._gplan:
+            g = sp.column(gcol.name)
+            if gcol.kind == "int":
+                args += [g.data, g.validity, gcol.window, gcol.base]
+            else:
+                args += [g.data, g.validity]
+                if gcol.remap is not None:
+                    args.append(self._remap_dev(gcol))
+        for lay in self._clause_layout(part):
+            if isinstance(lay, str):
+                continue
+            for i, _sig in lay:
+                leaf = self.filters[i]
+                f = sp.column(leaf.column)
+                if leaf.kind == "int":
+                    args += [f.data, f.validity, leaf.lit]
+                elif leaf.lit is None:
+                    args += [f.validity]
+                else:
+                    args += [f.data, f.validity, self._leaf_lut_dev(i)]
+        for spec in self.aggs:
+            if spec.func == E.AGG_COUNT:
+                continue
+            v = sp.column(spec.column)
+            if v is None:
+                raise NotCompilable(f"part lacks {spec.column}")
+            plan = self.value_plans[spec.column]
+            if spec.func in (E.AGG_MIN, E.AGG_MAX) and plan.fmm:
+                # monotone int64 key plane (host-transformed, cached):
+                # k = bits ^ ((bits >> 63) & 0x7FF..F) orders exactly like
+                # the doubles; decode inverts the same transform.
+                col = spec.column
+
+                def mk_fmm(col=col, part=part):
+                    def compute():
+                        from ..columnbatch import Column as _HC
+
+                        c = part.batch.column(col)
+                        b = np.ascontiguousarray(
+                            c.values, dtype=np.float64
+                        ).view(np.int64)
+                        k = b ^ ((b >> 63) & np.int64(0x7FFFFFFFFFFFFFFF))
+                        return _HC(
+                            f"{col}#fmm",
+                            "int64",
+                            k,
+                            np.ones(len(k), dtype=np.bool_),
+                        )
+
+                    return compute
+
+                dc = sp.derived(f"{col}#fmm", mk_fmm())
+                args += [dc.data, dc.validity]
+                continue
+            if spec.func == E.AGG_SUM and plan.fexact is not None:
+                # Four host-decomposed digit planes (floatsum.decompose_np),
+                # uploaded once per part via the derived-column cache (top
+                # plane stays SIGNED — int64-native sums).
+                from ..columnbatch import Column as _HC
+                from ..floatsum import decompose_np
+
+                col = spec.column
+                scale = plan.fexact.scale
+
+                def mk(pi, col=col, scale=scale, part=part, plan=plan):
+                    def compute():
+                        c = part.batch.column(col)
+                        planes = decompose_np(c.values, plan.fexact)
+                        return _HC(
+                            f"{col}#fx{pi}@{scale}",
+                            "int64",
+                            planes[pi],
+                            np.ones(len(planes[pi]), dtype=np.bool_),
+                        )
+
+                    return compute
+
+                for pi in range(4):
+                    dc = sp.derived(f"{col}#fx{pi}@{scale}", mk(pi))
+                    args.append(dc.data)
+            else:
+                args += [v.data, v.validity]
+        return args
+
+    # ------------------------------------------------------------------
+
+    def _shuffle_program(self, sig, num_codes: int):
+        """One part's shuffle-route program: local SPARSE sort-reduce of
+        the selected rows into (code, count, first, partials) pairs — each
+        code at most once per part — then a scatter into the carried
+        [num_codes] owner tables (on more devices, the pairs would first be
+        exchanged to their owners)."""
+        clause_sigs, ops, gshape = sig
+        n_aggv = sum(
+            _op_width(fn, f)
+            for fn, _if, f, _m in ops
+            if fn != E.AGG_COUNT
+        )
+
+        def step(*xs):
+            i, gcodes, sel, rows, vlist, vops, _vfmm = _unpack_inputs(
+                xs, gshape, clause_sigs, ops
+            )
+            tabs = list(xs[i : i + 2 + n_aggv])
+            # Global stream position: the tables accumulate ACROSS parts
+            # inside the program, so each part's rows shift by its offset
+            # in the concatenated stream (the dense path adds it outside).
+            offset = xs[i + 2 + n_aggv]
+
+            # local sparse reduce: a stable sort of the rows by code puts
+            # the selected rows first, each code's rows in stream order;
+            # only that prefix is reduced (the one host sync of the part),
+            # one pair per distinct code.
+            n_sel = int(sel.sum())
+            if n_sel == 0:
+                return tuple(tabs)
+            keyv = torch.where(sel, gcodes.to(torch.int64), num_codes)
+            order = torch.sort(keyv, stable=True).indices[:n_sel]
+            ks = keyv[order]
+            head = K._diffs(ks)
+            starts = torch.nonzero(head).squeeze(1)
+            seg = torch.cumsum(head.to(torch.int32), 0) - 1
+            n_pairs = starts.shape[0]
+            pcode = ks[starts]
+            pcount = torch.diff(starts, append=starts.new_full((1,), n_sel))
+            pfirst = rows[order[starts]] + offset
+            out_tabs = [
+                tabs[0].index_add_(0, pcode, pcount),
+                tabs[1].scatter_reduce_(0, pcode, pfirst, reduce="amin"),
+            ]
+            # owner scatter into the carried tables (one owner: slot ==
+            # code); fmm ordering keys reduce like any int64 since no
+            # identity competes inside a pair
+            for vi, (v, func) in enumerate(zip(vlist, vops)):
+                t = tabs[2 + vi]
+                reduce = {K.AGG_SUM: "sum", K.AGG_MIN: "amin"}.get(func, "amax")
+                part = K._segment(v[order], seg, n_pairs, reduce)
+                if func == K.AGG_SUM:
+                    out_tabs.append(t.index_add_(0, pcode, part))
+                else:
+                    out_tabs.append(t.scatter_reduce_(0, pcode, part, reduce=reduce))
+            return tuple(out_tabs)
+
+        return step
+
+    def _execute_shuffle(self, parts, num_codes: int):
+        # per-table identities: counts, first, then per agg op (fmm
+        # ordering keys span full int64 -> int64-extreme identities)
+        fills = [0, _BIG]
+        for spec in self.aggs:
+            if spec.func == E.AGG_COUNT:
+                continue
+            plan2 = self.value_plans[spec.column]
+            if plan2.fexact is not None:
+                fills += [0] * 4
+            elif spec.func == E.AGG_UNIQUE:
+                fills += [_BIG, -_BIG, 0]
+            elif spec.func == E.AGG_AND:
+                fills.append(_BIG)
+            elif spec.func == E.AGG_MIN:
+                fills.append(_I64_MAX if plan2.fmm else _BIG)
+            elif spec.func == E.AGG_MAX:
+                fills.append(_I64_MIN if plan2.fmm else -_BIG)
+            else:
+                fills.append(0)
+        tabs = [
+            torch.full((num_codes,), f, dtype=torch.int64, device=self.device)
+            for f in fills
+        ]
+        offset = 0
+        for p in parts:
+            prog = self._shuffle_program(self._part_signature(p), num_codes)
+            tabs = list(prog(*self._part_args(p, self._part_data(p)), *tabs, offset))
+            offset += p.batch.num_rows
+        blob = torch.cat(tabs).cpu().numpy()
+        if self.allocator is not None:
+            self.allocator.allocate(int(blob.nbytes))
+        try:
+            return self._shuffle_epilogue(blob, num_codes)
+        finally:
+            # the one release of the reservation (the reference's epilogue
+            # released it too, so a second query's bytes went with it)
+            if self.allocator is not None:
+                self.allocator.free(int(blob.nbytes))
+
+    def _shuffle_epilogue(self, blob, num_codes):
+        def table(ti):
+            return blob[ti * num_codes : (ti + 1) * num_codes]
+
+        counts_np = table(0)
+        first_np = table(1)
+        by_name: dict[str, np.ndarray] = {}
+        ti = 2
+        for spec in self.aggs:
+            name = spec.result_name
+            if spec.func == E.AGG_COUNT:
+                by_name[name] = counts_np
+                continue
+            plan = self.value_plans[spec.column]
+            if plan.fexact is not None:
+                from ..floatsum import recombine
+
+                pls = [table(ti + pi) for pi in range(4)]
+                ti += 4
+                by_name[name] = recombine(pls, plan.fexact)
+                continue
+            if spec.func == E.AGG_UNIQUE:
+                mn, mx, vc = table(ti), table(ti + 1), table(ti + 2)
+                ti += 3
+                uvalid = (mn == mx) & (vc == counts_np)
+                by_name[name] = (np.where(uvalid, mn, 0), uvalid)
+                continue
+            if spec.func == E.AGG_AND:
+                vals = table(ti)
+                ti += 1
+                by_name[name] = (vals > 0).astype(np.bool_)
+                continue
+            vals = table(ti)
+            ti += 1
+            if spec.func in (E.AGG_MIN, E.AGG_MAX) and plan.fmm:
+                # invert the monotone transform, reinterpret as float64
+                k2 = vals.astype(np.int64)
+                b = k2 ^ ((k2 >> 63) & np.int64(0x7FFFFFFFFFFFFFFF))
+                by_name[name] = b.view(np.float64)
+                continue
+            if plan.is_float:
+                vals = vals.astype(np.float64)
+            by_name[name] = vals
+
+        present = np.nonzero(counts_np > 0)[0]
+        order_arr = present[np.argsort(first_np[present], kind="stable")]
+        order_arr = self._ordered_sort(order_arr.astype(np.int64))
+        return emit_output(
+            self._emitted_group_cols(order_arr),
+            order_arr,
+            [spec.result_name for spec in self.aggs],
+            by_name,
+            self.output_projection,
+        )
+
+    def _execute(self):
+        parts = self._filter_parts(self._visible_parts())
+        ranges = self._check_parts_common(parts)
+        for plan in self.value_plans.values():
+            vmin, vmax = ranges.get(plan.column, (None, None))
+            if plan.need_minmax and vmax is not None:
+                if vmax >= _BIG or vmin <= -_BIG:
+                    # Values past the reductions' +-2^62 identity headroom
+                    # — generic engine territory.
+                    raise NotCompilable("min/max values near int64 sentinel")
+        try:
+            self._gplan, num_codes = self._group_remap(parts)
+        except NotCompilable as e:
+            if "group code space" not in str(e):
+                raise
+            # Shuffle route: past the [K] program's ceiling, aggregate via
+            # local sparse reduce + owner tables (the role of
+            # aggregate.go:430-470's overflow splitting).
+            self._gplan, num_codes = self._group_remap(
+                parts, max_codes=SHUFFLE_MAX_CODES
+            )
+            return self._execute_shuffle(parts, num_codes)
+
+        result_names = [spec.result_name for spec in self.aggs]
+        if not parts:
+            empty = np.asarray([], dtype=np.int64)
+            return emit_output(
+                self._emitted_group_cols(empty),
+                empty,
+                result_names,
+                {n: np.zeros(num_codes, np.int64) for n in result_names},
+                self.output_projection,
+            )
+
+        dev = self.device
+        counts_total = torch.zeros((num_codes,), dtype=torch.int64, device=dev)
+        global_first = torch.full(
+            (num_codes,), _BIG, dtype=torch.int64, device=dev
+        )
+        acc: dict[str, Optional[object]] = {n: None for n in result_names}
+        offset = 0
+        for p in parts:
+            sp = self._part_data(p)
+            sig = self._part_signature(p)
+            prog = self._program(sig, num_codes)
+            outs = prog(*self._part_args(p, sp))
+            counts_p, first_p = outs[0], outs[1]
+            counts_total = counts_total + counts_p
+            global_first = torch.minimum(
+                global_first, torch.where(counts_p > 0, first_p + offset, _BIG)
+            )
+            oi = 2
+            for spec in self.aggs:
+                name = spec.result_name
+                prev = acc[name]
+                if (
+                    spec.func == E.AGG_SUM
+                    and self.value_plans[spec.column].fexact is not None
+                ):
+                    planes = list(outs[oi : oi + 4])
+                    oi += 4
+                    acc[name] = (
+                        planes
+                        if prev is None
+                        else [a + b for a, b in zip(prev, planes)]
+                    )
+                    continue
+                if spec.func == E.AGG_UNIQUE:
+                    mn_p, mx_p, vc_p = outs[oi : oi + 3]
+                    oi += 3
+                    acc[name] = (
+                        [mn_p, mx_p, vc_p]
+                        if prev is None
+                        else [
+                            torch.minimum(prev[0], mn_p),
+                            torch.maximum(prev[1], mx_p),
+                            prev[2] + vc_p,
+                        ]
+                    )
+                    continue
+                out_p = outs[oi]
+                oi += 1
+                if prev is None:
+                    acc[name] = out_p
+                elif spec.func in (E.AGG_SUM, E.AGG_COUNT):
+                    acc[name] = prev + out_p
+                elif spec.func in (E.AGG_MIN, E.AGG_AND):
+                    acc[name] = torch.minimum(prev, out_p)
+                else:
+                    acc[name] = torch.maximum(prev, out_p)
+            # live rows only: padding rows never select
+            offset += p.batch.num_rows
+
+        # ONE device-to-host copy for the whole query.
+        blob_entries = [counts_total, global_first]
+        for n in result_names:
+            a = acc[n]
+            blob_entries.extend(a if isinstance(a, list) else [a])
+        blob = torch.cat(blob_entries).cpu().numpy()
+        if self.allocator is not None:
+            # per-query transient accounting (query/memory.go:17); freed in
+            # a finally so an epilogue error cannot leak the reservation
+            self.allocator.allocate(int(blob.nbytes))
+        try:
+            return self._dense_epilogue(blob, num_codes, result_names)
+        finally:
+            if self.allocator is not None:
+                self.allocator.free(int(blob.nbytes))
+
+    def _dense_epilogue(self, blob, num_codes, result_names):
+        counts_np = blob[:num_codes]
+        first_np = blob[num_codes : 2 * num_codes]
+        by_name: dict[str, np.ndarray] = {}
+        off = 2 * num_codes
+        for j, name in enumerate(result_names):
+            spec = self.aggs[j]
+            plan = (
+                self.value_plans.get(spec.column)
+                if spec.func != E.AGG_COUNT
+                else None
+            )
+            if (
+                spec.func == E.AGG_SUM
+                and plan is not None
+                and plan.fexact is not None
+            ):
+                from ..floatsum import recombine
+
+                pls = []
+                for _pi in range(4):
+                    pls.append(blob[off : off + num_codes])
+                    off += num_codes
+                by_name[name] = recombine(pls, plan.fexact)
+                continue
+            if spec.func == E.AGG_UNIQUE:
+                mn = blob[off : off + num_codes]
+                mx = blob[off + num_codes : off + 2 * num_codes]
+                vc = blob[off + 2 * num_codes : off + 3 * num_codes]
+                off += 3 * num_codes
+                uvalid = (mn == mx) & (vc == counts_np)
+                by_name[name] = (np.where(uvalid, mn, 0), uvalid)
+                continue
+            if spec.func == E.AGG_AND:
+                vals = blob[off : off + num_codes]
+                off += num_codes
+                by_name[name] = (vals > 0).astype(np.bool_)
+                continue
+            vals = blob[off : off + num_codes]
+            off += num_codes
+            if (
+                spec.func in (E.AGG_MIN, E.AGG_MAX)
+                and plan is not None
+                and plan.fmm
+            ):
+                # invert the monotone transform and reinterpret as f64
+                k = vals.astype(np.int64)
+                b = k ^ ((k >> 63) & np.int64(0x7FFFFFFFFFFFFFFF))
+                by_name[name] = b.view(np.float64)
+                continue
+            if plan is not None and plan.is_float:
+                vals = vals.astype(np.float64)
+            by_name[name] = vals
+
+        # Group emission order = first occurrence among selected rows of the
+        # concatenated part stream (matching kernels.group_ids); each row
+        # has exactly one code so stream positions are distinct.
+        present = np.nonzero(counts_np > 0)[0]
+        order_arr = present[np.argsort(first_np[present], kind="stable")]
+        order_arr = self._ordered_sort(order_arr.astype(np.int64))
+
+        return emit_output(
+            self._emitted_group_cols(order_arr),
+            order_arr,
+            result_names,
+            by_name,
+            self.output_projection,
+        )
+
+
+# ---------------------------------------------------------------------------
+# Local dense tier: the single-device large-K path
+
+
+class DenseLocalAggregate(MeshFilterAggregate):
+    """Single-device dense tier between the compiled tier and the generic
+    engine: the int64 program above over the table's ``part.device()``
+    cache, so group-bys past the kernels' 2048-code ceiling (up to 2^20
+    compact codes, and to 2^27 on the shuffle route) stay device-resident
+    across queries (the role of aggregate.go's unbounded group map)."""
+
+    def __init__(self, spec):
+        from .mesh import make_mesh
+
+        super().__init__(spec, make_mesh(1, device=spec.table.device), "shards")
+
+
+def lower_plan_dense(plan, exec_options) -> DenseLocalAggregate:
+    """The engine's large-K fallback: same matched shape, dense int64
+    reductions on the table's device."""
+    from ..compiled import match_plan
+
+    obj = DenseLocalAggregate(match_plan(plan, exec_options))
+    if exec_options is not None:
+        obj.allocator = exec_options.allocator
+    return obj

@@ -17,9 +17,9 @@ from ..columnbatch import ColumnBatch
 from ..memorylimit import LimitAllocator
 
 
-# Serving tiers of the reference engine that this package does not have yet.
+# The reason recorded for the reference's distributed tier, which this
+# package does not have yet.
 NOT_PORTED = "not ported"
-UNPORTED_TIERS = ("dense",)
 
 
 class LocalEngine:
@@ -200,27 +200,26 @@ class LocalQueryBuilder:
             #   compiled          fused filter+group-aggregate on the
             #                     hand-written CUDA kernels (ops/agg_kernels)
             #   compiled_join     groupjoin decomposition of agg-over-join
+            #   dense             int64 reductions past the kernels' 2048
+            #                     codes (+ the K>2^20 shuffle route)
             #   compiled_distinct fused distinct (Parca Types/Values)
             #   schema_meta       schema scans from part metadata (Labels)
-            # The reference's dense tier sits between compiled_join and
-            # compiled_distinct; it is not ported yet and records
-            # NOT_PORTED. MemoryLimitExceeded propagates as a query error,
-            # never as a fallback.
+            # MemoryLimitExceeded propagates as a query error, never as a
+            # fallback.
             from ..compiled import lower_plan
             from ..compiled_distinct import lower_plan_distinct
             from ..compiled_join import lower_plan_join_agg
+            from ..parallel.mesh_exec import lower_plan_dense
             from ..schema_meta import lower_plan_schema
 
             for path, lower in (
                 ("compiled", lower_plan),
                 ("compiled_join", lower_plan_join_agg),
-                ("dense", None),
+                ("dense", lower_plan_dense),
                 ("compiled_distinct", lower_plan_distinct),
                 ("schema_meta", lower_plan_schema),
             ):
-                if path in UNPORTED_TIERS:
-                    reasons[path] = NOT_PORTED
-                elif try_tier(path, lower):
+                if try_tier(path, lower):
                     return
             # Device-resident filter->project row retrieval streams its
             # batches (compiled_scan.py) — collected only when an epilogue

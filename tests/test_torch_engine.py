@@ -311,9 +311,12 @@ def test_ordered_segment_sum_signed_zeros_and_empty_segments():
 
 
 def test_unported_tiers_fall_back_exactly(directed):
-    """A group-by past the compiled tier's 2048 codes (the JAX package's
-    dense tier) is served by the generic DAG with the unported tiers
-    recorded, and gives the JAX package's rows."""
+    """A group-by past the compiled tier's 2048 codes is served by the dense
+    tier on both packages, with the same rows and decline reasons. Under a
+    one-device mesh option the distributed tier, which is not ported,
+    records "not ported" and the dense tier still serves."""
+    from frostdb_tpu_torch.parallel.mesh import make_mesh
+
     jdb, pdb = directed
 
     def make_q(eng, E):
@@ -325,11 +328,20 @@ def test_unported_tiers_fall_back_exactly(directed):
     assert jpath == "dense"
     out, path, reasons = run_port(pdb, make_q)
     assert out == ref
-    assert path == "generic"
+    assert path == "dense"
     assert reasons["compiled"].startswith("group code space")
     assert reasons["compiled_join"] == "no join below the aggregation"
-    assert reasons["dense"] == "not ported"
-    assert "compiled_distinct" in reasons and "compiled_scan" in reasons
+    assert "dense" not in reasons
+
+    eng = PEngine(
+        pdb.table_provider(),
+        exec_options=POptions(mesh=make_mesh(1, device="cpu")),
+    )
+    got = []
+    make_q(eng, PE).execute(got.append)
+    assert FZ.rows(got) == ref
+    assert eng.last_serving_path == "dense"
+    assert eng.last_fallback_reasons["mesh"] == "not ported"
 
 
 # ---------------------------------------------------------------------------
@@ -355,10 +367,15 @@ class Block:
             raise ImportError("blocked " + name)
 sys.meta_path.insert(0, Block())
 import frostdb_tpu_torch
-for m in pkgutil.walk_packages(frostdb_tpu_torch.__path__, "frostdb_tpu_torch."):
-    importlib.import_module(m.name)
+names = [m.name for m in pkgutil.walk_packages(frostdb_tpu_torch.__path__, "frostdb_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+for name in ("parallel", "parallel.mesh", "parallel.mesh_exec", "sqlparse", "logictest"):
+    assert "frostdb_tpu_torch." + name in names, name
 import chip_smoke
 import kernel_variants
+for example in ("simple", "aggregations", "sql_joins"):
+    importlib.import_module("examples_torch." + example)
 """
     repo = pathlib.Path(__file__).resolve().parents[1]
     subprocess.run([sys.executable, "-c", code], cwd=repo, check=True, timeout=120)

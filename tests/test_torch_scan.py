@@ -276,7 +276,7 @@ def test_unfiltered_scan_stays_generic(scan_dbs):
     assert path == "generic"
     assert reasons["compiled_scan"] == "unfiltered scan (generic path)"
     assert reasons["compiled_join"] == "root is not an aggregation"
-    assert reasons["dense"] == "not ported"
+    assert reasons["dense"] == "root is not an aggregation"
 
 
 def test_empty_result(scan_dbs):
