@@ -44,6 +44,17 @@ with the launch counts set to 0 just before it and read just after:
 Then every engine shape of paths 1-4 runs once more as SQL text through the
 port's SQL front end and must take the same tier and give the same rows.
 
+6. the durability path (slice 5): the engine table's data written again,
+   insert by insert, into a store as Parca runs one with persistence (WAL
+   fsynced per insert, a parquet bucket as sink and source, snapshots every
+   256 MiB, rotation at 512 MiB), a hard kill after the last acknowledged
+   insert, recovery on the card timed by part (snapshot load, WAL replay,
+   the first query's bucket reads), then five aggregate shapes, a scan and
+   a distinct on the recovered table, each on its tier, equal to numpy over
+   every acknowledged row and to the same shape on the in-memory table,
+   each kernel call equal to its plain version, timed and profiled; one
+   shape over gRPC on localhost, and dbtool on the store's WAL and snapshot.
+
 Last, each kernel is checked and timed on the inputs its path gave it
 (K1, K2 and K3 on every shape that launches them), beside its plain
 version, a one-call PyTorch yardstick and three bounds (padded rows, live
@@ -624,14 +635,17 @@ def _tensors(args):
 # Engine phase
 
 
-def build_table(db, name, n_parts, floats=None, seed=SEED, stack_p=None):
+def build_table(db, name, n_parts, floats=None, seed=SEED, stack_p=None,
+                sync=True, insert_s=None):
     """bench.py engine_bench's table: n_parts records of ROWS_PER_PART rows,
     64 label codes, int64 timestamp and value in [0, 1000). With
     ``floats(rng, n)`` the table also holds the float64 ``floatvalue``
     column of ``sample_definition_with_float``, filled from it. With
     ``stack_p`` (a probability per stack), ``stacktrace`` codes are drawn
     from ``len(stack_p)`` distinct stacks ``s0, s1, ...`` at those
-    probabilities, else every row holds the one stack ``stack``."""
+    probabilities, else every row holds the one stack ``stack``. The table
+    is synced at the end unless ``sync`` is false; ``insert_s``, a list,
+    gets each insert's seconds."""
     from frostdb_tpu_torch.columnbatch import (
         Column, ColumnBatch, KIND_DICT, KIND_FLOAT64, KIND_INT64,
     )
@@ -671,9 +685,13 @@ def build_table(db, name, n_parts, floats=None, seed=SEED, stack_p=None):
             fv = floats(rng, n)
             cols.append(Column("floatvalue", KIND_FLOAT64, fv, ones))
             val = fv
+        t0 = time.perf_counter()
         table.insert_record(ColumnBatch(cols, n))
+        if insert_s is not None:
+            insert_s.append(time.perf_counter() - t0)
         data.append((codes, ts, val))
-    table.sync()
+    if sync:
+        table.sync()
     return table, data
 
 
@@ -939,14 +957,18 @@ def device_breakdown(runs, walls, top: int = 4) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     for name, fn in runs:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
+        # A trace now and then holds no device events: one more try.
+        for _attempt in range(2):
             torch.cuda.synchronize()
-        ops = [
-            e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-        ]
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            ops = [
+                e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+            ]
+            if ops:
+                break
         if not ops:
             log(f"engine {name}: device time not measured (the profiler saw no device events)")
             continue
@@ -2021,6 +2043,324 @@ def sql_part(engine, lit: int = 40):
 
 
 # ---------------------------------------------------------------------------
+# Durability phase (slice 5)
+
+# FrostDB as Parca runs it with persistence: every acknowledged insert is
+# fsynced to the WAL, rotated blocks go to a bucket that is also a source,
+# the active block rotates at TableConfig's default 512 MiB and a snapshot
+# is due every 256 MiB of inserts (half the active memory). Both sizes scale
+# with ROWS_PER_PART, so a cut rehearsal still rotates after inserts 10, 20
+# and 30.
+def durable_sizes() -> tuple:
+    """(active block bytes, snapshot trigger bytes) at this ROWS_PER_PART."""
+    active = (512 << 20) * ROWS_PER_PART // (1 << 21)
+    return active, active // 2
+
+
+DURABLE_SHAPES = ("band_ts_ge", "band3_dict_eq", "int_eq", "or", "min_max",
+                  "scan_value_gt", "distinct_values")
+DURABLE_KERNELS = ("fused_band_group_sum_count", "group_sum_count", "group_min_max",
+                   "fused_cmp_group_sum_count", "block_compact")
+
+
+def durable_shapes(E, i, lit):
+    """The phase's seven shapes for query number ``i``: (name, fn(engine)
+    -> query, serving tier, kernels), the aggregates at literal ``lit``."""
+    out = [
+        (name, lambda e, f=filt, a=aggs: e.scan_table("t").filter(f).aggregate(
+            a, [E.Col("labels.label1")]), "compiled", kernels)
+        for name, filt, aggs, kernels in shapes(E, lit)
+    ]
+    return out + [s for s in scan_shapes(E, i) if s[0] in DURABLE_SHAPES]
+
+
+def tree_bytes(path) -> tuple:
+    """(files, bytes) under ``path``."""
+    import os
+
+    n = size = 0
+    for root, _dirs, files in os.walk(path):
+        for f in files:
+            n += 1
+            size += os.path.getsize(os.path.join(root, f))
+    return n, size
+
+
+@contextlib.contextmanager
+def timed_calls(owner, attr, took):
+    """Add the seconds of every call of ``owner.attr`` to ``took[attr]``
+    while the block runs."""
+    fn = getattr(owner, attr)
+    took.setdefault(attr, 0.0)
+
+    def call(*a, **k):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            took[attr] += time.perf_counter() - t
+
+    setattr(owner, attr, call)
+    try:
+        yield took
+    finally:
+        setattr(owner, attr, fn)
+
+
+def durable_store(root, device):
+    from frostdb_tpu_torch.db import ColumnStore
+    from frostdb_tpu_torch.store import FileSystemBucket
+
+    bucket = FileSystemBucket(f"{root}/bucket")
+    return ColumnStore(
+        storage_path=f"{root}/db", enable_wal=True, wal_sync=True,
+        snapshot_trigger_size=durable_sizes()[1], sources=[bucket],
+        sinks=[bucket], device=device,
+    ), bucket
+
+
+def durability_phase(AK, t_engine, n_parts, device="cuda"):
+    """Slice 5's path: build_table's data into a durable store (WAL with
+    fsync, bucket sink and source, snapshots), a hard kill after the last
+    acknowledged insert, recovery on the card timed by part, then the seven
+    shapes on the recovered table with the launch counts set to 0 before
+    and read after: each on its tier, equal to numpy over every acknowledged
+    row and to the same shape on ``t``, timed and profiled; one shape over
+    gRPC; dbtool on the store's files. The store lives in a temporary
+    directory, removed at the end."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="frostdb-durable-")
+    try:
+        return _durability(AK, t_engine, n_parts, device, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _durability(AK, t_engine, n_parts, device, root):
+    import io
+    import os
+    import shutil
+
+    import torch
+
+    import frostdb_tpu_torch.snapshot as S
+    from frostdb_tpu_torch.query import expr as E
+    from frostdb_tpu_torch.query.engine import LocalEngine
+    from frostdb_tpu_torch.schema import sample_definition
+    from frostdb_tpu_torch.store import FileSystemBucket
+    from frostdb_tpu_torch.table import TableConfig
+    from frostdb_tpu_torch.wal import FileWAL
+
+    t_phase = time.perf_counter()
+    total = n_parts * ROWS_PER_PART
+    log(f"durable store in {root}: {shutil.disk_usage(root).free / 2**30:.1f} GiB free there")
+
+    # Ingest with durability on, then a hard kill after the last ack.
+    store, bucket = durable_store(root, device)
+    db = store.db("durable")
+    db.table("t", TableConfig(schema=sample_definition(), active_memory_size=durable_sizes()[0]))
+    insert_s: list = []
+    t0 = time.perf_counter()
+    table, data = build_table(db, "t", n_parts, sync=False, insert_s=insert_s)
+    wall = time.perf_counter() - t0
+    snaps_bytes = store.metrics.snapshot_bytes.value()
+    log(
+        f"durable ingest: {n_parts} inserts x {ROWS_PER_PART} rows, "
+        f"{total / sum(insert_s):.4g} rows/s acknowledged (insert calls {sum(insert_s):.2f} s, "
+        f"median {statistics.median(insert_s) * 1e3:.1f} ms, max {max(insert_s) * 1e3:.1f} ms; "
+        f"{wall:.2f} s with data generation); {table.metrics.rotations.value():.0f} rotations, "
+        f"{store.metrics.snapshots_total.value():.0f} snapshots ({snaps_bytes / 2**20:.1f} MiB), "
+        f"{store.metrics.wal_truncations.value():.0f} WAL truncations"
+    )
+    pending = len(table.pending_blocks)
+    db.wal.hard_kill()
+    t0 = time.perf_counter()
+    db.join_background(timeout=600.0)
+    quiet_s = time.perf_counter() - t0
+    busy = table._rot_running or any(
+        b.index._bg_running for b in [table.active_block] + list(table.pending_blocks)
+    )
+    if busy:
+        raise AssertionError("the killed store's background threads are still running")
+    wal_files, wal_b = tree_bytes(os.path.join(root, "db", "databases", "durable", "wal"))
+    snap_files, snap_b = tree_bytes(os.path.join(root, "db", "databases", "durable", "snapshots"))
+    idx_files, idx_b = tree_bytes(os.path.join(root, "db", "databases", "durable", "index"))
+    pq_files, pq_b = tree_bytes(os.path.join(root, "bucket"))
+    blocks = bucket.blocks("durable", "t")
+    log(
+        f"hard kill after insert {n_parts}: {pending} rotated blocks still pending, "
+        f"background quiet after {quiet_s:.2f} s; on disk: WAL {wal_files} segments "
+        f"{wal_b / 2**20:.1f} MiB, snapshots {snap_files} files {snap_b / 2**20:.1f} MiB, "
+        f"disk-level index {idx_files} files {idx_b / 2**20:.1f} MiB, bucket {len(blocks)} "
+        f"blocks in {pq_files} files {pq_b / 2**20:.1f} MiB"
+    )
+    del table
+
+    # Recovery on the card, timed by part.
+    took: dict = {}
+    with timed_calls(S, "load_snapshot", took), timed_calls(FileWAL, "replay", took):
+        t0 = time.perf_counter()
+        store2, _bucket2 = durable_store(root, device)
+        db2 = store2.db("durable")
+        open_s = time.perf_counter() - t0
+    engine = LocalEngine(db2.table_provider())
+    band = durable_shapes(E, 0, 40)[0][1]
+    with timed_calls(FileSystemBucket, "read_block_parts", took):
+        t0 = time.perf_counter()
+        run_shape(engine, band)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+    if engine.last_serving_path != "compiled":
+        raise AssertionError(f"first query served by {engine.last_serving_path}")
+    t2 = db2.get_table("t")
+
+    def layout():
+        sizes = [p.batch.num_rows for p in t2.collect_parts(db2.high_watermark(), include_sources=True)]
+        return (f"{len(sizes)} parts ({sum(sizes)} rows; {len(t2.source_parts() or ())} "
+                f"from the bucket, largest {max(sizes)}, smallest {min(sizes)} rows)")
+
+    first_layout = layout()
+    # Replayed writes compact, and snapshot-restored pending blocks persist,
+    # on worker threads: the steady path runs on the settled layout.
+    t0 = time.perf_counter()
+    t2.sync()
+    settle_s = time.perf_counter() - t0
+    log(
+        f"durable recovery: open {open_s:.3f} s = snapshot load {took['load_snapshot']:.3f} s + "
+        f"WAL replay (two passes) {took['replay']:.3f} s + rest "
+        f"{open_s - took['load_snapshot'] - took['replay']:.3f} s; first query {first_s:.3f} s "
+        f"= bucket row groups read {took['read_block_parts']:.3f} s + upload, planes and "
+        f"kernels {first_s - took['read_block_parts']:.3f} s on {first_layout}; resumed "
+        f"persists and compactions settled {settle_s:.3f} s later: {layout()}, "
+        f"{len(t2.pending_blocks)} blocks pending"
+    )
+
+    # The main path: the seven shapes once, checked.
+    flat = tuple(np.concatenate([d[j] for d in data]) for j in range(3))
+    AK.reset_launches()
+    results = []
+    with capture_kernel_args(AK) as seen:
+        for name, make_q, tier, kernels in durable_shapes(E, 0, 40):
+            before = dict(AK.LAUNCHES)
+            n_seen = len(seen)
+            out = run_shape(engine, make_q)
+            moved = {k for k in AK.LAUNCHES if AK.LAUNCHES[k] > before[k]}
+            if engine.last_serving_path != tier:
+                raise AssertionError(f"durable {name}: served by {engine.last_serving_path}: {engine.last_fallback_reasons}")
+            if moved != kernels:
+                raise AssertionError(f"durable {name}: launched {moved}, expected {kernels}")
+            results.append((name, make_q, out, seen[n_seen:]))
+    launches = dict(AK.LAUNCHES)
+    log(f"main path launches (durable shapes on the recovered table): {json.dumps(launches)}")
+    for k in DURABLE_KERNELS:
+        if launches[k] == 0:
+            raise AssertionError(f"kernel {k} was not launched on the recovered table")
+    checked = 0
+    for name, make_q, out, calls in results:
+        ref_t = run_shape(t_engine, make_q)
+        if name in ("scan_value_gt", "distinct_values"):
+            ok = scan_reference_ok(name, 0, out, flat) and sorted(as_rows(out)) == sorted(as_rows(ref_t))
+        else:
+            got = {r[0][1]: tuple(v for _n, v in r[1:]) for r in as_rows(out)}
+            on_t = {r[0][1]: tuple(v for _n, v in r[1:]) for r in as_rows(ref_t)}
+            ok = got == host_reference(name, data, 40) == on_t
+        if not ok:
+            raise AssertionError(f"durable {name}: differs from numpy or from t")
+        # Each kernel's first call of the shape against its plain version.
+        done: set = set()
+        for kname, args in calls:
+            if kname in done:
+                continue
+            done.add(kname)
+            e = max_abs_err(getattr(AK, kname)(*args), getattr(AK, kname + "_plain")(*args))
+            if e:
+                raise AssertionError(f"durable {name}: {kname} differs from its plain version by {e}")
+            checked += 1
+    counts = run_shape(engine, durable_shapes(E, 0, 0)[0][1])
+    n_rows = sum(r[2][1] for r in as_rows(counts))
+    if n_rows != total:
+        raise AssertionError(f"recovered table holds {n_rows} rows, {total} were acknowledged")
+    log(
+        f"durable shapes: all 7 on their tiers, equal to numpy over all {total} acknowledged "
+        f"rows and to the same shape on t; {n_rows} rows counted, none lost or doubled; "
+        f"{checked} kernel calls equal to their plain versions"
+    )
+
+    # Latency on the recovered table against t, interleaved.
+    walls: dict = {}
+    for i in range(QUERY_REPS):
+        for name, make_q, _tier, _k in durable_shapes(E, i, 100 + 37 * i):
+            for label, eng in (("durable", engine), ("t", t_engine)):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                run_shape(eng, make_q)
+                torch.cuda.synchronize()
+                walls.setdefault(f"{label} {name}", []).append((time.perf_counter() - t1) * 1e3)
+    for name in DURABLE_SHAPES:
+        w, wt = walls[f"durable {name}"], walls[f"t {name}"]
+        log(
+            f"durable {name}: median {statistics.median(w):.3f} ms (t: {statistics.median(wt):.3f} ms), "
+            f"min {min(w):.3f} ms over {len(w)} queries of {total} rows"
+        )
+    device_breakdown(
+        [(f"durable {name}", lambda m=make_q: run_shape(engine, m))
+         for name, make_q, _t, _k in durable_shapes(E, 0, 90)],
+        walls,
+    )
+
+    # One shape over gRPC on localhost: the same rows as LocalEngine.
+    from frostdb_tpu_torch.exprpb import RemoteClient, make_grpc_server
+    from frostdb_tpu_torch.query.logical import Builder
+
+    plan = (
+        Builder().scan(db2.table_provider(), "t").filter(E.Col("timestamp").gt_eq(40))
+        .aggregate([E.Sum(E.Col("value")), E.Count(E.Col("value"))], [E.Col("labels.label1")])
+        .build()
+    )
+    server, port = make_grpc_server(store2)
+    server.start()
+    try:
+        client = RemoteClient(f"127.0.0.1:{port}")
+        before = AK.LAUNCHES["fused_band_group_sum_count"]
+        t0 = time.perf_counter()
+        remote = as_rows(list(client.query(plan, database="durable")))
+        grpc_ms = (time.perf_counter() - t0) * 1e3
+        grpc_k1 = AK.LAUNCHES["fused_band_group_sum_count"] - before
+        client.channel.close()
+    finally:
+        server.stop(0).wait()
+    local = as_rows(run_shape(engine, band))
+    if remote != local:
+        raise AssertionError("gRPC rows differ from LocalEngine's")
+    log(
+        f"gRPC band_ts_ge on 127.0.0.1: {len(remote)} rows == LocalEngine (order included), "
+        f"{grpc_ms:.3f} ms, fused_band_group_sum_count launched {grpc_k1} times for it"
+    )
+
+    # dbtool on the recovered store's files.
+    from frostdb_tpu_torch.tools import dbtool
+
+    base = os.path.join(root, "db", "databases", "durable")
+    snap_txs = S.list_snapshot_txns(os.path.join(base, "snapshots"))
+    reports = []
+    for argv in (["wal", os.path.join(base, "wal")],
+                 ["snapshot", S.snapshot_path(os.path.join(base, "snapshots"), snap_txs[-1])]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            dbtool.main(argv)
+        text = buf.getvalue().strip().splitlines()
+        if not text:
+            raise AssertionError(f"dbtool {argv[0]} printed nothing")
+        reports.append(f"{argv[0]}: {text[0]}" + (f" / {text[1]}" if len(text) > 1 else ""))
+    log("dbtool on the store: " + "; ".join(reports))
+    store2.close()
+    log(f"durability phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Kernel bench phase (K5)
 
 
@@ -2165,6 +2505,8 @@ def main() -> int:
         for (name, shape), kargs in more_captured.items():
             keep_captures(captured, shape, [(name, kargs)])
     sql_part(engine)
+    for k, n in durability_phase(AK, engine, args.parts).items():
+        launches[k] += n
     live_rows = {k: total for k in KERNELS}
     live_rows["filter_group_sum_count"] = BENCH_ROWS
     rows = main_path_kernels(AK, captured, errs, launches, live_rows)

@@ -14,12 +14,14 @@ Device: ``ColumnStore(device=...)`` picks the torch device every table
 lives on. The default is ``"cuda"``, which raises when no GPU is visible;
 pass ``device="cpu"`` to run on the CPU.
 
-Ported so far: in-memory tables, the planner and generic operator DAG
-(joins included), the ``compiled``, ``compiled_join``, ``dense``,
+Ported so far: tables, the planner and generic operator DAG (joins
+included), the ``compiled``, ``compiled_join``, ``dense``,
 ``compiled_distinct``, ``schema_meta`` and ``compiled_scan`` serving tiers,
 the SQL front end (``sqlparse``) and the logic-test runner
-(``logictest``). Persistence, the plan protocol and multi-device execution
-are not ported yet.
+(``logictest``), durability (the WAL, snapshots, disk-level index files,
+recovery, the parquet bucket and the Iceberg catalog), typed records, the
+gRPC plan protocol (``exprpb``) and ``tools/dbtool``. Multi-device
+execution is not ported yet.
 """
 
 from .schema import (
@@ -35,6 +37,8 @@ from .schema import (
 from .columnbatch import ColumnBatch, Dictionary
 from .db import ColumnStore, DB
 from .table import Table, TableConfig
+from .store import FileSystemBucket
+from .iceberg import IcebergCatalog
 
 __all__ = [
     "SchemaDef",
@@ -51,6 +55,8 @@ __all__ = [
     "DB",
     "Table",
     "TableConfig",
+    "FileSystemBucket",
+    "IcebergCatalog",
 ]
 
 __version__ = "0.1.0"

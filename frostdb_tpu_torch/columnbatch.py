@@ -185,6 +185,45 @@ def _hash64(s: str) -> int:
     return h - (1 << 64) if h >= (1 << 63) else h
 
 
+def _encode_arrow_strings(d: "Dictionary", arr) -> tuple[np.ndarray, np.ndarray]:
+    """Codes in ``d`` and validity of a string or dictionary Arrow array,
+    with no per-row Python work: only the distinct values the rows use are
+    looked up, and values new to ``d`` are encoded in the order of their
+    first row, so ``d`` assigns the codes that encoding every row in order
+    would. The rows then map through their values' codes."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    if not pa.types.is_dictionary(arr.type):
+        arr = pc.dictionary_encode(arr)
+    idx = np.asarray(arr.indices.fill_null(0), dtype=np.int64)
+    valid = np.asarray(arr.is_valid(), dtype=np.bool_)
+    nd = len(arr.dictionary)
+    used = idx[valid]
+    present = np.flatnonzero(np.bincount(used, minlength=nd))
+
+    def strings(positions):
+        vals = arr.dictionary.take(pa.array(positions, type=pa.int64())).to_pylist()
+        return [
+            v.decode("utf-8", "surrogateescape") if isinstance(v, bytes) else v
+            for v in vals
+        ]
+
+    vals = strings(present)
+    if any(v is not None and d.lookup(v) is None for v in vals):
+        # New values: encode them in first-row order.
+        uniq, first = np.unique(used, return_index=True)
+        present = uniq[np.argsort(first, kind="stable")]
+        vals = strings(present)
+    codes_of, valid_of = d.encode(vals)
+    remap = np.zeros(nd, dtype=np.int32)
+    remap_valid = np.zeros(nd, dtype=np.bool_)
+    remap[present] = codes_of
+    remap_valid[present] = valid_of
+    valid &= remap_valid[idx]
+    return np.where(valid, remap[idx], 0).astype(np.int32), valid
+
+
 class Dictionary:
     """Append-only string dictionary shared by all parts of a table column.
 
@@ -692,12 +731,7 @@ class ColumnBatch:
                 )
             if pa.types.is_string(t) or pa.types.is_large_string(t) or pa.types.is_binary(t):
                 d = dict_for(name)
-                pylist = arr.to_pylist()
-                pylist = [
-                    v.decode("utf-8", "surrogateescape") if isinstance(v, bytes) else v
-                    for v in pylist
-                ]
-                codes, valid = d.encode(pylist)
+                codes, valid = _encode_arrow_strings(d, arr)
                 return Column(name, KIND_DICT, codes, valid, d)
             if pa.types.is_boolean(t):
                 np_valid = np.asarray(arr.is_valid())

@@ -13,7 +13,7 @@ import threading
 from typing import Callable, Optional
 
 from .config import DEFAULT_DEVICE, resolve_device
-from .table import PERSISTENCE_NOT_PORTED, Table, TableConfig
+from .table import Table, TableConfig
 
 
 class TxPool:
@@ -148,7 +148,10 @@ class DB:
             return
         size = sum(t.active_block.size() for t in self.tables.values())
         if size - self._snapshot_inserts >= self.snapshot_trigger_size:
-            raise NotImplementedError(PERSISTENCE_NOT_PORTED)
+            from .snapshot import write_snapshot
+
+            write_snapshot(self, self.snapshot_dir)
+            self._snapshot_inserts = size
 
     def maintain_wal(self) -> None:
         """Truncate the WAL live below the durable watermark (reference:
@@ -209,12 +212,11 @@ class DBTableProvider:
 
 
 class ColumnStore:
-    """reference: db.go:86 New. In-memory only in this package: a storage
-    path, a WAL, snapshots, sources or sinks raise NotImplementedError.
+    """reference: db.go:86 New.
 
-    ``device`` is the torch device every table's parts live on. The default
-    is ``"cuda"``, which raises when no GPU is visible; pass
-    ``device="cpu"`` to run on the CPU."""
+    ``device`` is the torch device every table's parts live on, recovered
+    and bucket-read parts included. The default is ``"cuda"``, which raises
+    when no GPU is visible; pass ``device="cpu"`` to run on the CPU."""
 
     def __init__(
         self,
@@ -224,22 +226,30 @@ class ColumnStore:
         sources=(),
         sinks=(),
         metrics=None,
+        wal_segment_size: Optional[int] = None,
+        wal_sync: bool = True,
         background_threads: bool = True,
+        fault_injector=None,
         device=DEFAULT_DEVICE,
     ):
-        if storage_path is not None or enable_wal or snapshot_trigger_size:
-            raise NotImplementedError(PERSISTENCE_NOT_PORTED)
-        if sources or sinks:
-            raise NotImplementedError(PERSISTENCE_NOT_PORTED)
         self.device = resolve_device(device)
+        # Write-fault injection for the DST (reference: dst/vfs/fs.go:24):
+        # wired into the WAL, disk index levels, and snapshot writer.
+        self.fault_injector = fault_injector
         # Rotation persists and LSM compactions run on worker threads (the
         # reference's `go t.writeBlock` / `go l.compact`); False forces the
         # fully-synchronous single-threaded mode.
         self.background_threads = background_threads
-        self.storage_path = None
-        self.sources: list = []
-        self.sinks: list = []
-        self.fault_injector = None
+        self.storage_path = storage_path
+        self.enable_wal = enable_wal
+        self.wal_segment_size = wal_segment_size
+        # sync=False runs the WAL's async tx-ordered batcher (the
+        # reference's default, wal/wal.go:360): acknowledged writes may be
+        # lost on a hard crash until the batcher's next fsync.
+        self.wal_sync = wal_sync
+        self.snapshot_trigger_size = snapshot_trigger_size
+        self.sources = list(sources)
+        self.sinks = list(sinks)
         self.dbs: dict[str, DB] = {}
         if metrics is None:
             from .metrics import MetricsRegistry
@@ -248,14 +258,84 @@ class ColumnStore:
         self.metrics = metrics
 
     def db_path(self, name: str) -> Optional[str]:
-        return None
+        if self.storage_path is None:
+            return None
+        return os.path.join(self.storage_path, "databases", name)
 
     def db(self, name: str) -> DB:
-        """Open or create a database (reference: db.go:402 DB)."""
+        """Open or create a database, replaying durable state (reference:
+        db.go:402 DB + db.go:670 recover)."""
         d = self.dbs.get(name)
-        if d is None:
-            d = self.dbs[name] = DB(self, name, device=self.device)
+        if d is not None:
+            return d
+
+        wal = None
+        snapshot_dir = None
+        path = self.db_path(name)
+        if path is not None:
+            os.makedirs(path, exist_ok=True)
+            snapshot_dir = os.path.join(path, "snapshots")
+        if self.enable_wal and path is not None:
+            from .wal import FileWAL, SEGMENT_MAX_BYTES
+
+            wal = FileWAL(
+                os.path.join(path, "wal"),
+                sync=self.wal_sync,
+                segment_size=self.wal_segment_size or SEGMENT_MAX_BYTES,
+                repair_counter=(
+                    self.metrics.wal_repairs if self.metrics else None
+                ),
+                injector=self.fault_injector,
+            )
+
+        d = DB(
+            self,
+            name,
+            wal=wal,
+            device=self.device,
+            sources=self.sources,
+            sinks=self.sinks,
+            snapshot_trigger_size=self.snapshot_trigger_size,
+            snapshot_dir=snapshot_dir,
+        )
+        self.dbs[name] = d
+
+        if path is not None:
+            from .recovery import recover_db
+
+            recover_db(d, path)
+        self._discover_readonly_tables(d)
         return d
+
+    def _discover_readonly_tables(self, d: DB) -> None:
+        """Register tables that exist only in object storage as queryable
+        read-only tables (reference: db.go:494-508 — table prefixes listed
+        from the DataSource, schemas recovered from block metadata;
+        WithReadOnlyStorage db.go:180). Any table already created locally
+        (or recovered from WAL/snapshot) keeps its writable runtime."""
+        from .table import Table, TableConfig
+
+        for source in d.sources:
+            prefixes = getattr(source, "prefixes", None)
+            list_blocks = getattr(source, "list_blocks", None)
+            block_schema = getattr(source, "block_schema", None)
+            if prefixes is None or list_blocks is None or block_schema is None:
+                continue
+            for name in prefixes(d.name):
+                if name in d.tables:
+                    continue
+                schema = None
+                for _block_id, ref in list_blocks(d.name, name):
+                    schema = block_schema(ref)
+                    if schema is not None:
+                        break
+                if schema is None:
+                    continue
+                t = Table(d, name, TableConfig(schema=schema.def_))
+                t.read_only = True
+                if self.metrics is not None:
+                    t.metrics = self.metrics.table_metrics(d.name, name)
+                d.tables[name] = t
 
     def close(self) -> None:
         for d in self.dbs.values():

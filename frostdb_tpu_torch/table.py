@@ -21,11 +21,6 @@ from .columnbatch import Column, ColumnBatch, Dictionary, KIND_DICT
 from .lsm import LSM, LevelConfig, Part, prune_part
 from .schema import Schema, SchemaDef, is_dynamic_name, split_dynamic
 
-# Persistence (disk index levels, snapshots, WAL, bucket sinks) is not
-# ported yet: the in-memory table path never reaches it, and every entry
-# that would raises this message.
-PERSISTENCE_NOT_PORTED = "persistence lands in a later slice"
-
 
 class SourceWithoutBlockAPI(Exception):
     """A data source does not expose list_blocks/read_block_parts; callers
@@ -112,7 +107,15 @@ class TableBlock:
         final = DEFAULT_LEVELS[-1].level
         d = table.index_dir()
         if d is not None:
-            raise NotImplementedError(PERSISTENCE_NOT_PORTED)
+            from .disklevel import DiskLevel
+
+            self.disk_level = DiskLevel(
+                os.path.join(d, self.id, str(final)),
+                final,
+                is_dead=table._dead,
+                injector=table._fault_injector(),
+                device=table.device,
+            )
         self._final_level = final
 
     def _on_compact(self, level: int) -> None:
@@ -140,7 +143,15 @@ class TableBlock:
         if d is None:
             self.disk_level = None
             return
-        raise NotImplementedError(PERSISTENCE_NOT_PORTED)
+        from .disklevel import DiskLevel
+
+        self.disk_level = DiskLevel(
+            os.path.join(d, self.id, str(self._final_level)),
+            self._final_level,
+            is_dead=self.table._dead,
+            injector=self.table._fault_injector(),
+            device=self.table.device,
+        )
 
     def delete_index_files(self) -> None:
         """Block rotation drops the whole block index dir
@@ -456,7 +467,9 @@ class Table:
             and self.db.snapshot_dir is not None
             and not self._dead()
         ):
-            raise NotImplementedError(PERSISTENCE_NOT_PORTED)
+            from .snapshot import write_snapshot
+
+            write_snapshot(self.db, self.db.snapshot_dir)
         self.db.maintain_wal()
 
     def wait_for_rotations(self) -> None:
