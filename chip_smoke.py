@@ -10,7 +10,7 @@ kernels also the code layouts they are designed for: sorted runs across
 the vector, warp, block and grid-stride boundaries, one code, two random
 codes, out-of-range codes, ragged lengths, 2048 codes, unaligned planes,
 the count-only pass, int32-extreme values, negative selection entries and
-min/max's second pass over a wide column). Then drives five paths, each
+min/max's second pass over a wide column). Then drives six paths, each
 with the launch counts set to 0 just before it and read just after:
 
 1. the aggregate shapes (slice 1): the engine's hot filter + group-by
@@ -38,13 +38,23 @@ with the launch counts set to 0 just before it and read just after:
    on its shuffle route, each checked against numpy at full width and
    against the generic DAG on a 2-part table, timed and profiled; no
    K1-K6 kernel may run here (the dense tier is torch ops);
-5. the kernel bench (bench.py's data): 8 datasets of 2^25 rows through the
+5. the mesh shapes (slice 7): the five aggregate shapes, dense_stack,
+   dense_shuffle, an exact float sum, a float min/max and join_rows under
+   ExecOptions(mesh=...) at 1 and at 4 shards (the 4 shards all on the one
+   card), each served by the mesh tier (join_rows by the generic HashJoin,
+   its pairs expanded by the distributed join) and equal, in order, to the
+   same shape on its local tier; no K1-K6 kernel may run here (the mesh
+   tier is torch ops); dense_shuffle at 4 shards must move pairs across
+   shards; then the distributed modules (filter-aggregate, distinct,
+   shuffle, join) against numpy, timings and a profile at each shard
+   count, the sharded upload's bytes and seconds;
+6. the kernel bench (bench.py's data): 8 datasets of 2^25 rows through the
    fused `ts >= literal` sum/count kernel, checked exactly against numpy.
 
 Then every engine shape of paths 1-4 runs once more as SQL text through the
 port's SQL front end and must take the same tier and give the same rows.
 
-6. the durability path (slice 5): the engine table's data written again,
+7. the durability path (slice 5): the engine table's data written again,
    insert by insert, into a store as Parca runs one with persistence (WAL
    fsynced per insert, a parquet bucket as sink and source, snapshots every
    256 MiB, rotation at 512 MiB), a hard kill after the last acknowledged
@@ -1532,7 +1542,6 @@ def join_phase(AK, db, engine, generic, data, total):
     import torch
 
     from frostdb_tpu_torch.query import expr as E
-    from frostdb_tpu_torch.query.engine import NOT_PORTED
 
     t0 = time.perf_counter()
     sides = join_tables(db)
@@ -1557,8 +1566,6 @@ def join_phase(AK, db, engine, generic, data, total):
             moved = {k for k in AK.LAUNCHES if AK.LAUNCHES[k] > before[k]}
             if engine.last_serving_path != tier:
                 raise AssertionError(f"{name}: served by {engine.last_serving_path}: {engine.last_fallback_reasons}")
-            if engine.last_fallback_reasons.get("compiled_join") == NOT_PORTED:
-                raise AssertionError(f"{name}: compiled_join reads {NOT_PORTED!r}")
             if moved != kernels:
                 raise AssertionError(f"{name}: launched {moved}, expected {kernels}")
             keep_captures(captured, name, seen[n_seen:])
@@ -1933,6 +1940,271 @@ def dense_phase(AK, db, engine, generic, n_parts):
                 run_shape(engine, make_q)
             reduction_times(name, captured)
     log(f"dense phase: {time.perf_counter() - t0:.1f} s")
+    return launches, {}
+
+
+# ---------------------------------------------------------------------------
+# Mesh phase (slice 7): the mesh tier over 1 and 4 shards of the one card
+
+MESH_SHARDS = (1, 4)
+
+
+def mesh_shapes(E, i):
+    """The mesh phase's query shapes for query number ``i``: (name,
+    fn(engine) -> query, tier under ExecOptions(mesh=...)). The five
+    aggregate shapes on ``t``, dense_stack (the sorted program) and
+    dense_shuffle (the pair exchange) on ``stacks``, an exact float sum
+    (digit planes) and a float min/max (the two-pass (hi, lo) reduce) on
+    ``fx``, and join_rows (the generic HashJoin, its pairs expanded by the
+    distributed CSR join)."""
+    ts, label, fv = E.Col("timestamp"), E.Col("labels.label1"), E.Col("floatvalue")
+    lit = 40 + 37 * i
+    out = [
+        (name, lambda e, f=filt, a=aggs: e.scan_table("t").filter(f).aggregate(a, [label]), "mesh")
+        for name, filt, aggs, _k in shapes(E, lit)
+    ]
+    out += [
+        (name, make_q, "mesh")
+        for name, _t, make_q, _r in dense_shapes(E, i)
+        if name in ("dense_stack", "dense_shuffle")
+    ]
+    out += [
+        ("fx_sum", lambda e: e.scan_table("fx").filter(ts.gt_eq(lit)).aggregate(
+            [E.Sum(fv)], [label]), "mesh"),
+        ("fx_minmax", lambda e: e.scan_table("fx").filter(ts.gt_eq(lit)).aggregate(
+            [E.Min(fv), E.Max(fv)], [label]), "mesh"),
+    ]
+    out += [(name, make_q, "generic") for name, make_q, _t, _k in join_shapes(E, i) if name == "join_rows"]
+    return out
+
+
+def fx_minmax_reference(db, lit: int = 40):
+    """fx_minmax's rows {label: (min, max)} with numpy over fx's parts."""
+    parts = db.get_table("fx").collect_parts(db.high_watermark())
+    codes, ts, fv = (
+        np.concatenate([p.batch.column(c).values for p in parts])
+        for c in ("labels.label1", "timestamp", "floatvalue")
+    )
+    m = ts >= lit
+    mn = np.full(NUM_CODES, np.inf)
+    mx = np.full(NUM_CODES, -np.inf)
+    np.minimum.at(mn, codes[m], fv[m])
+    np.maximum.at(mx, codes[m], fv[m])
+    present = np.bincount(codes[m], minlength=NUM_CODES) > 0
+    return {f"g{k}": (float(mn[k]), float(mx[k])) for k in np.flatnonzero(present)}
+
+
+def mesh_modules(db, mesh) -> None:
+    """The distributed modules once each on PartitionedTables of the first
+    part of ``t`` over ``mesh``, each against numpy: a filtered sum, min,
+    max and count (distributed_filter_aggregate), the labels present
+    (distributed_distinct), the skew-aware exchange (shuffle_by_key_auto:
+    every row kept, each label on its hash's shard) and an inner join with
+    a duplicate-key build side (distributed_join_auto: every pair's keys
+    equal, the pair count and the build values' sum as numpy's)."""
+    from frostdb_tpu_torch.columnbatch import Column, ColumnBatch, KIND_DICT, KIND_INT64
+    from frostdb_tpu_torch.parallel import (
+        PartitionedTable, distributed_distinct, distributed_filter_aggregate, shuffle_by_key_auto,
+    )
+    from frostdb_tpu_torch.parallel.join import distributed_join_auto
+    from frostdb_tpu_torch.parallel.mesh import _hash_int64
+
+    t0 = time.perf_counter()
+    n_shards = len(mesh.devices)
+    batch = db.get_table("t").collect_parts(db.high_watermark())[0].batch
+    key = "labels.label1"
+    codes = batch.column(key).values.astype(np.int64)
+    ts, val = batch.column("timestamp").values, batch.column("value").values
+    pt = PartitionedTable.from_batch(batch, mesh)
+
+    (s, mn, mx), cnt = distributed_filter_aggregate(
+        pt, key, NUM_CODES, [("sum", "value"), ("min", "value"), ("max", "value")],
+        filter_col="timestamp", filter_op=">=", filter_literal=40,
+    )()
+    m = ts >= 40
+    want_mn = np.full(NUM_CODES, np.iinfo(np.int64).max)
+    want_mx = np.full(NUM_CODES, np.iinfo(np.int64).min)
+    np.minimum.at(want_mn, codes[m], val[m])
+    np.maximum.at(want_mx, codes[m], val[m])
+    want = (
+        np.bincount(codes[m], weights=val[m], minlength=NUM_CODES).astype(np.int64),
+        want_mn, want_mx, np.bincount(codes[m], minlength=NUM_CODES),
+    )
+    for got, ref in zip((s, mn, mx, cnt), want):
+        if not np.array_equal(got.cpu().numpy(), ref):
+            raise AssertionError("distributed_filter_aggregate differs from numpy")
+    present = distributed_distinct(pt, key, NUM_CODES + 8).cpu().numpy()
+    if not np.array_equal(present, np.bincount(codes, minlength=NUM_CODES + 8) > 0):
+        raise AssertionError("distributed_distinct differs from numpy")
+
+    sh, salt = shuffle_by_key_auto(pt, key)
+    k = np.asarray(sh.column(key).data).astype(np.int64)
+    kv = np.asarray(sh.column(key).validity)
+    v = np.asarray(sh.column("value").data)
+    per = sh.n_pad // n_shards
+    shard_of = np.repeat(np.arange(n_shards), per)
+    if (
+        kv.sum() != len(codes)
+        or (salt == 1 and not np.array_equal(_hash_int64(k[kv]) % n_shards, shard_of[kv]))
+        or not np.array_equal(
+            np.bincount(k[kv], weights=v[kv], minlength=NUM_CODES),
+            np.bincount(codes, weights=val, minlength=NUM_CODES),
+        )
+    ):
+        raise AssertionError("shuffle_by_key_auto lost rows or misplaced a key")
+
+    rk = np.array([c for c in range(0, NUM_CODES, 3) for _ in range(1 + c % 3)], np.int32)
+    rw = np.arange(len(rk), dtype=np.int64) * 10 - 50
+    ones = np.ones(len(rk), bool)
+    right = ColumnBatch(
+        [Column(key, KIND_DICT, rk, ones, batch.column(key).dictionary),
+         Column("w", KIND_INT64, rw, ones)],
+        len(rk),
+    )
+    left = PartitionedTable.from_batch(batch, mesh, hash_key=key)
+    rpt = PartitionedTable.from_batch(right, mesh, hash_key=key)
+    totals, li, rvalid, rvs, cap = distributed_join_auto(left, rpt, key, NUM_CODES, [key, "w"], "inner")
+    lcodes = np.asarray(left.column(key).data)
+    lvalid = np.asarray(left.column(key).validity)
+    li, rvalid = np.asarray(li), np.asarray(rvalid)
+    rcode, rwout = np.asarray(rvs[0]), np.asarray(rvs[2])
+    per = left.n_pad // n_shards
+    pairs, wsum = 0, 0
+    for sh_i in range(n_shards):
+        sl = slice(sh_i * cap, sh_i * cap + int(totals[sh_i]))
+        lrow = sh_i * per + li[sl]
+        if not (lvalid[lrow].all() and rvalid[sl].all() and np.array_equal(lcodes[lrow], rcode[sl])):
+            raise AssertionError("distributed_join_auto paired rows of different keys")
+        pairs += len(lrow)
+        wsum += int(rwout[sl].sum())
+    cnt_r = np.bincount(rk, minlength=NUM_CODES)
+    sum_r = np.bincount(rk, weights=rw, minlength=NUM_CODES).astype(np.int64)
+    if pairs != int(cnt_r[codes].sum()) or wsum != int(sum_r[codes].sum()):
+        raise AssertionError("distributed_join_auto differs from numpy")
+    log(
+        f"mesh modules on {n_shards} shards over one part of t ({len(codes)} rows): "
+        f"distributed_filter_aggregate, distributed_distinct, shuffle_by_key_auto (salt {salt}) "
+        f"and distributed_join_auto (inner, {pairs} pairs, cap {cap}) == numpy, "
+        f"{time.perf_counter() - t0:.1f} s"
+    )
+
+
+def mesh_phase(AK, db, engine, smi, device="cuda"):
+    """Slice 7's path: every mesh shape on the mesh tier at 1 and at 4
+    shards (all on the one card), once with the launch counts set to 0
+    before and read after (no K1-K6 may run): each served by ``mesh``
+    (join_rows by the generic HashJoin), its rows equal, in order, to the
+    same shape's rows from its local tier, which the earlier phases held to
+    numpy (fx_minmax, new here, against numpy too); at 4 shards
+    dense_shuffle must move pairs across shards. Then the distributed
+    modules against numpy, the shapes timed over QUERY_REPS queries at each
+    shard count and profiled, and the parts' sharded mirrors dropped."""
+    import torch
+
+    from frostdb_tpu_torch.device import SHARDED_UPLOAD_STATS, ShardedDeviceBatch
+    from frostdb_tpu_torch.parallel import mesh_exec as ME
+    from frostdb_tpu_torch.parallel.mesh import make_mesh
+    from frostdb_tpu_torch.query import expr as E
+    from frostdb_tpu_torch.query.engine import LocalEngine
+    from frostdb_tpu_torch.query.physical import ExecOptions
+
+    t0 = time.perf_counter()
+    meshes = {n: make_mesh(n, device=device) for n in MESH_SHARDS}
+    for n, mesh in meshes.items():
+        log(f"mesh of {n} shard(s): " + ", ".join(f"shard {s} on {d}" for s, d in enumerate(mesh.devices)))
+    engines = {n: LocalEngine(db.table_provider(), ExecOptions(mesh=mesh)) for n, mesh in meshes.items()}
+
+    steps: dict = {}
+    t_step = time.perf_counter()
+    local = {}
+    for name, make_q, _tier in mesh_shapes(E, 0):
+        local[name] = (run_shape(engine, make_q), engine.last_serving_path)
+    got = {r[0][1]: tuple(v for _n, v in r[1:]) for r in as_rows(local["fx_minmax"][0])}
+    if got != fx_minmax_reference(db):
+        raise AssertionError(f"fx_minmax on the {local['fx_minmax'][1]} tier differs from numpy")
+    steps["local tiers"] = time.perf_counter() - t_step
+
+    # The main path, also the first query of each shape at each shard
+    # count: it uploads the parts' sharded mirrors.
+    t_step = time.perf_counter()
+    AK.reset_launches()
+    exchange = {}
+    for n, eng in engines.items():
+        before = dict(SHARDED_UPLOAD_STATS)
+        took: dict = {}
+        t2 = time.perf_counter()
+        ME.EXCHANGE_STATS.update(exchanges=0, pairs=0, bytes=0, oversub=0.0)
+        with timed_calls(ShardedDeviceBatch, "_upload", took):
+            for name, make_q, tier in mesh_shapes(E, 0):
+                out = run_shape(eng, make_q)
+                if eng.last_serving_path != tier:
+                    raise AssertionError(f"{name} at {n} shard(s): served by {eng.last_serving_path}: {eng.last_fallback_reasons}")
+                if not same_columns(out, local[name][0]):
+                    raise AssertionError(f"{name} at {n} shard(s) differs from the {local[name][1]} tier's rows")
+            torch.cuda.synchronize()
+        exchange[n] = dict(ME.EXCHANGE_STATS)  # dense_shuffle's: no other shape exchanges
+        log(
+            f"mesh {n} shard(s): sharded upload of "
+            f"{SHARDED_UPLOAD_STATS['columns'] - before['columns']} columns, "
+            f"{SHARDED_UPLOAD_STATS['bytes'] - before['bytes']} bytes in {took['_upload']:.3f} s, "
+            f"within the first pass over the shapes of {time.perf_counter() - t2:.1f} s"
+        )
+    launches = dict(AK.LAUNCHES)
+    log(f"main path launches (mesh shapes): {json.dumps(launches)}")
+    if any(launches.values()):
+        raise AssertionError("a K1-K6 kernel was launched on the mesh shapes")
+    for name, _make_q, tier in mesh_shapes(E, 0):
+        want, local_tier = local[name]
+        log(
+            f"{name}: {sum(b.num_rows for b in want)} rows on the {tier} tier at "
+            f"{' and '.join(map(str, MESH_SHARDS))} shards == the {local_tier} tier's rows, in order"
+        )
+    ex = exchange[MESH_SHARDS[-1]]
+    log(
+        f"dense_shuffle at {MESH_SHARDS[-1]} shards: {ex['exchanges']} pair exchanges (one per part), "
+        f"{ex['pairs']} pairs and {ex['bytes']} bucket bytes crossed shards, oversub ended at {ex['oversub']}"
+    )
+    if ex["pairs"] == 0:
+        raise AssertionError("dense_shuffle moved no pair across shards")
+    steps["main path"] = time.perf_counter() - t_step
+
+    t_step = time.perf_counter()
+    mesh_modules(db, meshes[MESH_SHARDS[-1]])
+    steps["modules"] = time.perf_counter() - t_step
+
+    t_step = time.perf_counter()
+    log(
+        f"mesh timings on {smi}: the {MESH_SHARDS[-1]} shards share the one card's SMs and "
+        f"memory bandwidth, so their times are not a scaling number"
+    )
+    walls: dict = {}
+    for i in range(QUERY_REPS):
+        for n, eng in engines.items():
+            for name, make_q, tier in mesh_shapes(E, i):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                run_shape(eng, make_q)
+                walls.setdefault(f"{name}@{n}", []).append((time.perf_counter() - t1) * 1e3)
+                if eng.last_serving_path != tier:
+                    raise AssertionError(f"{name} #{i} at {n} shard(s): served by {eng.last_serving_path}")
+    for key, w in walls.items():
+        log(f"mesh {key}: median {statistics.median(w):.3f} ms, min {min(w):.3f} ms over {len(w)} queries")
+    steps["timing"] = time.perf_counter() - t_step
+    t_step = time.perf_counter()
+    device_breakdown(
+        [(f"{name}@{n}", lambda e=eng, m=make_q: run_shape(e, m))
+         for n, eng in engines.items() for name, make_q, _t in mesh_shapes(E, 0)],
+        walls, top=6,
+    )
+    steps["profile"] = time.perf_counter() - t_step
+    for name in ("t", "t2", "stacks", "fx"):
+        for p in db.get_table(name).collect_parts(db.high_watermark()):
+            p._device_sharded.clear()
+    torch.cuda.empty_cache()
+    log(
+        f"mesh phase: {time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in steps.items()) + ")"
+    )
     return launches, {}
 
 
@@ -2497,6 +2769,7 @@ def main() -> int:
         lambda: scan_distinct_phase(AK, db, engine, generic, data, total),
         lambda: join_phase(AK, db, engine, generic, data, total),
         lambda: dense_phase(AK, db, engine, generic, args.parts),
+        lambda: mesh_phase(AK, db, engine, smi),
         lambda: k5_bench_phase(AK, dev),
     ):
         more_launches, more_captured = phase()

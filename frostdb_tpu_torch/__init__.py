@@ -14,14 +14,15 @@ Device: ``ColumnStore(device=...)`` picks the torch device every table
 lives on. The default is ``"cuda"``, which raises when no GPU is visible;
 pass ``device="cpu"`` to run on the CPU.
 
-Ported so far: tables, the planner and generic operator DAG (joins
-included), the ``compiled``, ``compiled_join``, ``dense``,
+Ported: tables, the planner and generic operator DAG (joins included),
+the ``mesh``, ``compiled``, ``compiled_join``, ``dense``,
 ``compiled_distinct``, ``schema_meta`` and ``compiled_scan`` serving tiers,
-the SQL front end (``sqlparse``) and the logic-test runner
-(``logictest``), durability (the WAL, snapshots, disk-level index files,
-recovery, the parquet bucket and the Iceberg catalog), typed records, the
-gRPC plan protocol (``exprpb``) and ``tools/dbtool``. Multi-device
-execution is not ported yet.
+execution over a mesh of shards (``parallel``: row-sharded tables, the
+distributed aggregate, shuffle and join), the SQL front end
+(``sqlparse``) and the logic-test runner (``logictest``), durability (the
+WAL, snapshots, disk-level index files, recovery, the parquet bucket and
+the Iceberg catalog), typed records, the gRPC plan protocol (``exprpb``)
+and ``tools/dbtool``.
 """
 
 from .schema import (

@@ -92,17 +92,21 @@ class DeviceBatch:
         self._cols[name] = dc
         return dc
 
-    def _upload(self, hc: Column) -> DeviceColumn:
-        dtype = _KIND_TORCH_DTYPE[hc.kind]
+    def _padded(self, hc: Column) -> tuple:
+        """(values, validity) on the host, padded to ``n_pad`` rows."""
         host = _host_values(hc.kind, hc.values)
         vals = np.zeros(self.n_pad, dtype=host.dtype)
         vals[: self.n_rows] = host
         valid = np.zeros(self.n_pad, dtype=np.bool_)
         valid[: self.n_rows] = hc.validity
+        return vals, valid
+
+    def _upload(self, hc: Column) -> DeviceColumn:
+        vals, valid = self._padded(hc)
         return DeviceColumn(
             hc.name,
             hc.kind,
-            torch.from_numpy(vals).to(device=self.device, dtype=dtype),
+            torch.from_numpy(vals).to(device=self.device, dtype=_KIND_TORCH_DTYPE[hc.kind]),
             torch.from_numpy(valid).to(self.device),
         )
 
@@ -118,3 +122,80 @@ class DeviceBatch:
     def row_valid_mask(self) -> torch.Tensor:
         """Mask selecting real (non-padding) rows."""
         return torch.arange(self.n_pad, device=self.device) < self.n_rows
+
+
+class ShardedTensor(tuple):
+    """One tensor per mesh shard, each on its shard's device: the port's
+    counterpart of a ``jax.Array`` sharded along a 1D mesh axis. Shard ``s``
+    of a row-sharded [n_pad] tensor holds rows ``[s * per, (s + 1) * per)``;
+    a replicated value holds the whole value on every shard.
+    ``numpy()`` (and ``np.asarray``) gives the concatenation, the
+    reference's [n_pad] layout slot for slot."""
+
+    @property
+    def shape(self) -> tuple:
+        return (sum(t.shape[0] for t in self),) + tuple(self[0].shape[1:])
+
+    def numpy(self) -> np.ndarray:
+        return np.concatenate([t.cpu().numpy() for t in self])
+
+    def __array__(self, dtype=None, copy=None):
+        out = self.numpy()
+        return out if dtype is None else out.astype(dtype)
+
+
+def upload_shards(host: np.ndarray, devices, dtype) -> ShardedTensor:
+    """A padded host vector split into equal row ranges, range ``s`` copied
+    to ``devices[s]`` as ``dtype``."""
+    per = len(host) // len(devices)
+    return ShardedTensor(
+        torch.from_numpy(host[s * per : (s + 1) * per]).to(device=d, dtype=dtype)
+        for s, d in enumerate(devices)
+    )
+
+
+# Process-wide upload accounting of sharded part mirrors (host bytes of the
+# padded data and validity vectors) — lets tests assert the mesh scan is
+# incremental: an insert between two queries uploads only the new part's
+# bytes.
+SHARDED_UPLOAD_STATS = {"columns": 0, "bytes": 0}
+
+
+class ShardedDeviceBatch(DeviceBatch):
+    """Row-sharded device mirror of a host batch over a mesh axis.
+
+    The mesh analogue of ``DeviceBatch`` (whose ``column`` and ``derived``
+    caches it shares): each column is a ShardedTensor, rows packed
+    contiguously (part row r lives on shard ``r // per_shard`` at offset
+    ``r % per_shard``, ``per_shard`` rounded up to ROW_TILE), padding rows
+    carry validity False and sit past ``n_rows``. Parts cache one of these
+    per (mesh, axis) — the incremental upload unit of the mesh scan (the
+    role the reference's per-part incremental Scan plays,
+    index/lsm.go:401): a part-set change uploads only the NEW parts'
+    columns, never the whole table.
+    """
+
+    def __init__(self, cb: ColumnBatch, mesh, axis: str):
+        from .config import ROW_TILE
+
+        self.host = cb
+        self.mesh = mesh
+        self.axis = axis
+        self.n_rows = cb.num_rows
+        n_shards = mesh.shape[axis]
+        per = -(-max(cb.num_rows, 1) // n_shards)
+        self.per_shard = ((per + ROW_TILE - 1) // ROW_TILE) * ROW_TILE
+        self.n_pad = self.per_shard * n_shards
+        self._cols: dict[str, DeviceColumn] = {}
+
+    def _upload(self, hc: Column) -> DeviceColumn:
+        vals, valid = self._padded(hc)
+        dc = DeviceColumn(
+            hc.name,
+            hc.kind,
+            upload_shards(vals, self.mesh.devices, _KIND_TORCH_DTYPE[hc.kind]),
+            upload_shards(valid, self.mesh.devices, torch.bool),
+        )
+        SHARDED_UPLOAD_STATS["columns"] += 1
+        SHARDED_UPLOAD_STATS["bytes"] += vals.nbytes + valid.nbytes
+        return dc

@@ -40,6 +40,7 @@ class Part:
         # The table's torch device: where device() uploads the batch.
         self.device_name = device
         self._device: Optional[DeviceBatch] = None
+        self._device_sharded: dict = {}
         self._zone_map: Optional[dict] = None
         self._raw_ranges: dict = {}
         self._code_presence: dict = {}
@@ -60,6 +61,24 @@ class Part:
         if self._device is None:
             self._device = DeviceBatch(self.batch, self.device_name)
         return self._device
+
+    def device_sharded(self, mesh, axis: str):
+        """Cached row-sharded device mirror over a mesh axis — the
+        incremental upload unit of the mesh scan (parallel/mesh_exec.py):
+        each part uploads once per (mesh, axis) and stays device-resident
+        until the part itself is dropped (compaction/rotation), so a
+        part-set change re-uploads only the NEW parts. Keyed by the mesh's
+        value (its axis names and devices), so a collected mesh's id can
+        never alias a new one."""
+        key = (mesh, axis)
+        sdb = self._device_sharded.get(key)
+        if sdb is None:
+            from .device import ShardedDeviceBatch
+
+            sdb = self._device_sharded[key] = ShardedDeviceBatch(
+                self.batch, mesh, axis
+            )
+        return sdb
 
     def raw_range(self, name: str):
         """(min, max) over a column's raw values buffer *including* null

@@ -3,6 +3,7 @@ device work, in plain PyTorch on the tensors' own device.
 
 These replace the reference's per-row Go loops:
 
+- predicate masks            <- query/physicalplan/binaryscalarexpr.go
 - projection arithmetic      <- query/physicalplan/project.go binaryExprProjection
 - group aggregation          <- query/physicalplan/aggregate.go (hash map loop)
 - distinct                   <- query/physicalplan/distinct.go (seen-set loop)
@@ -31,6 +32,27 @@ import torch
 
 def _tensor(x) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+
+
+# ---------------------------------------------------------------------------
+# Predicate masks
+
+_COMPARE = {
+    "==": torch.eq,
+    "!=": torch.ne,
+    "<": torch.lt,
+    "<=": torch.le,
+    ">": torch.gt,
+    ">=": torch.ge,
+}
+
+
+def compare_scalar_mask(values, validity, literal, op: str):
+    """values <op> literal -> bool mask; null rows never match (reference:
+    ArrayScalarCompute skips null slots, binaryscalarexpr.go:143-146)."""
+    if op not in _COMPARE:
+        raise ValueError(f"unsupported compare op {op}")
+    return _COMPARE[op](values, literal) & validity
 
 
 # ---------------------------------------------------------------------------

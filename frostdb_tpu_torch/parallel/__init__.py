@@ -1,13 +1,32 @@
-"""Execution over a device mesh.
+"""Execution over a device mesh (reference: frostdb_tpu/parallel).
 
-The reference runs one SPMD program per part across a mesh of devices:
-per-device filter + partial aggregation, then cross-device combines
-(``psum``/``pmin``/``pmax``) and, for large key spaces, an ``all_to_all``
-pair exchange. This package has the one-device case: ``make_mesh`` builds
-a one-device mesh record, and ``mesh_exec`` holds the executor whose local
-instance is the engine's ``dense`` tier (group-bys past the compiled tier's
-2048 codes). Multi-device meshes, row-sharded tables, the distributed
-join and the shuffle operators are not ported yet.
+The reference's concurrency story is goroutine fan-out over a row-group
+channel with synchronizer fan-in (SURVEY.md §2.8; physicalplan.go:22
+GOMAXPROCS). Here, as in the JAX package, one controller drives a mesh of
+shards:
+
+- tables row-sharded, by position or by a key's hash, across the shards
+  (``PartitionedTable``; parts' own mirrors ``Part.device_sharded``)
+- per-shard filter + partial aggregation (the reference's per-goroutine
+  HashAggregate stage, aggregate.go:124 finalStage=false)
+- the Synchronizer barrier becomes a collective (collectives.py):
+  ``psum``/``pmin``/``pmax`` for dense group tables, an ``all_to_all``
+  exchange for row repartitioning and large key spaces
+- the distributed hash join (absent in the reference — north-star
+  extension)
+
+``mesh_exec`` holds the engine's ``mesh`` tier and its one-shard instance,
+the ``dense`` tier.
 """
 
-from .mesh import Mesh, make_mesh  # noqa: F401
+from .mesh import Mesh, PartitionedTable, make_mesh  # noqa: F401
+from .distributed import (  # noqa: F401
+    distributed_filter_aggregate,
+    distributed_distinct,
+)
+from .join import distributed_hash_join  # noqa: F401
+from .shuffle import (  # noqa: F401
+    ShuffleOverflow,
+    shuffle_by_key,
+    shuffle_by_key_auto,
+)

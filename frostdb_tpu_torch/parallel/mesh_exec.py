@@ -1,24 +1,37 @@
-"""Mesh execution of the fused filter + group-by aggregate, and the engine's
-``dense`` tier (reference: frostdb_tpu/parallel/mesh_exec.py).
+"""Mesh execution of the fused filter + group-by aggregate: the engine's
+``mesh`` tier and its ``dense`` tier (reference:
+frostdb_tpu/parallel/mesh_exec.py).
 
 The compiled tier's matched query shape (``compiled.match_plan``) executes
-part by part as int64 programs over dense group codes —
+part by part as int64 programs over dense group codes, each part
+row-sharded over the mesh —
 
-  per part:    selection mask (the full compiled filter envelope: AND of
+  per shard:   selection mask (the full compiled filter envelope: AND of
                OR-clauses of int64 compares, dict/string predicates as
                boolean-LUT gathers, ==/!= null via validity) -> dense
                per-code partials (segment reductions below 4096 codes,
                sort + prefix sums above; the non-final HashAggregate,
                aggregate.go:124)
+  cross-shard: psum / pmin / pmax over the mesh (collectives.py; the
+               final-stage Synchronizer, synchronize.go:16)
   across parts: the [K] partials accumulate on the device; one result
                blob comes back per query.
 
-Results are identical to the generic engine's, group emission order
-included: each part program reduces the exact first selected row per
-code, parts accumulate the minimum global stream position (a part's rows
-start at the sum of the live rows of the parts before it; padding rows
-never select and never move an offset), and groups emit in that
-first-occurrence order (or key order under ordered_aggregations).
+A shard program is a sequence of phases over the list of shards, split at
+each collective (the float min/max two-pass reduce combines its hi halves
+across shards before the lo pass). Results are identical to the generic
+engine's on any shard count, group emission order included: each part
+program reduces the exact first selected row per code (pmin across
+shards; shard ``s`` holds part rows ``[s * per_shard, (s + 1) *
+per_shard)``), parts accumulate the minimum global stream position (a
+part's rows start at the sum of the live rows of the parts before it;
+padding rows never select and never move an offset), and groups emit in
+that first-occurrence order (or key order under ordered_aggregations).
+
+Scan state is incremental per part: each immutable part caches one
+row-sharded mirror per (mesh, axis) (``Part.device_sharded``) until the
+part is dropped, so an insert between two queries uploads only the new
+part's columns.
 
 Value columns reduce natively in int64: sums, min/max and integral
 float64 columns. Non-integral float64 sums ride four exact digit planes
@@ -27,16 +40,18 @@ int64 ordering key ``bits ^ ((bits >> 63) & 0x7FF..F)``, inverted on the
 host.
 
 Past 2^20 codes the query takes the shuffle route: a local sparse
-sort-reduce of each part's selected rows into (code, count, first,
-partials) pairs, scattered into [K]-sized owner tables carried across
-parts, up to 2^27 codes. Past that the generic engine serves.
+sort-reduce of each shard's selected rows into (code, count, first,
+partials) pairs; on more than one shard the pairs go to their owner shard
+``code % n_shards`` through fixed-capacity buckets and an ``all_to_all``
+(overflow detected exactly, capacity doubled and retried), and each owner
+scatters them into [K / n_shards] tables carried across parts, up to 2^27
+codes. Past that the generic engine serves.
 
-This package runs on one device: the cross-device combines of the
-reference's programs (psum/pmin/pmax, the all_to_all pair exchange) are
-identities on a one-device mesh, and ``DenseLocalAggregate`` — the
-engine's ``dense`` tier between ``compiled_join`` and
-``compiled_distinct`` — is the only entry point. Every reduction is a
-torch op on the table's device.
+``lower_plan_mesh`` is the engine's ``mesh`` tier (``ExecOptions(mesh=)``,
+tried first); ``DenseLocalAggregate`` — the engine's ``dense`` tier
+between ``compiled_join`` and ``compiled_distinct`` — runs the same
+programs on a one-shard mesh over the compiled tier's ``part.device()``
+cache. Every reduction is a torch op on its shard's device.
 """
 
 from __future__ import annotations
@@ -53,8 +68,11 @@ from ..compiled import (
     _take_clip,
     emit_output,
 )
+from ..device import ShardedTensor
 from ..ops import kernels as K
 from ..query import expr as E
+from . import collectives as C
+from .shuffle import bucket_slots
 
 # Sentinel for "no selected row yet" stream positions / min partials — the
 # headroom convention of ops/kernels.sorted_group_reduce (values past 2^62
@@ -72,6 +90,15 @@ _SORTED_THRESHOLD = 4096
 # serves.
 SHUFFLE_MAX_CODES = 1 << 27
 
+# The cross-shard combine of each partial's reduction.
+_COMBINE = {K.AGG_SUM: C.psum, K.AGG_MIN: C.pmin, K.AGG_MAX: C.pmax}
+
+# The shuffle route's pair exchanges since the last reset (multi-shard
+# meshes): exchanges run, live pairs sent to another shard, bucket bytes
+# sent to another shard (padding slots included: the all_to_all moves
+# whole buckets), and the oversubscription the last query ended at.
+EXCHANGE_STATS = {"exchanges": 0, "pairs": 0, "bytes": 0, "oversub": 0.0}
+
 
 def _op_width(func, fexact: bool) -> int:
     """Number of [K] partial vectors one aggregation spec contributes:
@@ -85,12 +112,12 @@ def _op_width(func, fexact: bool) -> int:
     return 1
 
 
-def _unpack_inputs(xs, gshape, clause_sigs, ops):
-    """Shared input unpacking for the dense and shuffle part programs:
-    group-code build (dict remaps / window codes), CNF selection mask,
-    stream positions, and the per-aggregation value list (incl. exact-float
-    digit planes). Returns (next_arg_index, gcodes, sel, rows, vlist, vops,
-    vfmm)."""
+def _unpack_inputs(xs, gshape, clause_sigs, ops, shard: int = 0):
+    """Shared input unpacking for one shard of the dense and shuffle part
+    programs: group-code build (dict remaps / window codes), CNF selection
+    mask, the shard's part-row positions (``shard * per_shard + arange``),
+    and the per-aggregation value list (incl. exact-float digit planes).
+    Returns (next_arg_index, gcodes, sel, rows, vlist, vops, vfmm)."""
     n = xs[0]
     i = 1
     gcodes = None
@@ -111,7 +138,7 @@ def _unpack_inputs(xs, gshape, clause_sigs, ops):
         gcodes = c if gcodes is None else gcodes * k + c
         gvalid = v if gvalid is None else gvalid & v
     m = gcodes.shape[0]
-    rows = torch.arange(m, dtype=torch.int64, device=gcodes.device)
+    rows = shard * m + torch.arange(m, dtype=torch.int64, device=gcodes.device)
     sel = gvalid & (rows < n)
     for clause_sig in clause_sigs:
         if clause_sig == "true":
@@ -172,14 +199,59 @@ def _unpack_inputs(xs, gshape, clause_sigs, ops):
     return i, gcodes, sel, rows, vlist, vops, vfmm
 
 
+def _sparse_pairs(gcodes, sel, rows, vlist, vops, num_codes: int) -> list:
+    """Local sparse reduce of one shard's selected rows: a stable sort of
+    the rows by code puts the selected rows first, each code's rows in
+    stream order; only that prefix is reduced (one host sync), into one
+    (code, count, first row, partials...) pair per distinct code, codes
+    ascending. ``rows`` ascend. Returns the pair columns as int64 tensors.
+    fmm ordering keys reduce like any int64, since no identity competes
+    inside a pair."""
+    n_sel = int(sel.sum())
+    if n_sel == 0:
+        empty = torch.zeros(0, dtype=torch.int64, device=gcodes.device)
+        return [empty] * (3 + len(vlist))
+    keyv = torch.where(sel, gcodes.to(torch.int64), num_codes)
+    order = torch.sort(keyv, stable=True).indices[:n_sel]
+    ks = keyv[order]
+    head = K._diffs(ks)
+    starts = torch.nonzero(head).squeeze(1)
+    seg = torch.cumsum(head.to(torch.int32), 0) - 1
+    n_pairs = starts.shape[0]
+    cols = [
+        ks[starts],
+        torch.diff(starts, append=starts.new_full((1,), n_sel)),
+        rows[order[starts]],
+    ]
+    for v, func in zip(vlist, vops):
+        reduce = {K.AGG_SUM: "sum", K.AGG_MIN: "amin"}.get(func, "amax")
+        cols.append(K._segment(v[order], seg, n_pairs, reduce))
+    return cols
+
+
+def _scatter_pairs(tabs, slot, cols, vops) -> None:
+    """Owner scatter of pair columns (code, count, first, partials...) into
+    the carried tables (counts, first, per-value partials) at ``slot``."""
+    tabs[0].index_add_(0, slot, cols[1])
+    tabs[1].scatter_reduce_(0, slot, cols[2], reduce="amin")
+    for vi, func in enumerate(vops):
+        t, part = tabs[2 + vi], cols[3 + vi]
+        if func == K.AGG_SUM:
+            t.index_add_(0, slot, part)
+        else:
+            t.scatter_reduce_(
+                0, slot, part, reduce="amin" if func == K.AGG_MIN else "amax"
+            )
+
+
 class MeshFilterAggregate(CompiledFilterAggregate):
-    """One matched query over one table, executed over a mesh.
+    """One matched query over one table, executed across the mesh.
 
     Inherits the compiled path's plan validation, part pruning
     (_filter_parts), dictionary LUTs (_leaf_lut_np) and output emission;
-    only the device execution differs: per-part programs with int64
-    reductions. On a one-device mesh, the only one this package has,
-    every cross-shard combine is the identity.
+    only the device execution differs: row-sharded parts, per-shard
+    programs with int64 reductions, cross-shard collectives. On a
+    one-shard mesh every collective is the identity.
     """
 
     MAX_CODES = 1 << 20
@@ -196,13 +268,36 @@ class MeshFilterAggregate(CompiledFilterAggregate):
         )
         self.mesh = mesh
         self.axis = axis
-        if mesh.shape[axis] != 1:
-            raise NotImplementedError("multi-device meshes are not ported")
+        self.n_shards = mesh.shape[axis]
+        self.trivial = self.n_shards == 1
+        self.devices = tuple(mesh.devices)
 
     def _part_data(self, part):
-        """The part's device mirror: the compiled path's ``part.device()``
-        cache, so one upload serves both tiers."""
-        return part.device()
+        """The part's device mirror: row-sharded over the mesh (cached per
+        (mesh, axis) on the part). The local dense tier overrides this to
+        share the compiled tier's ``part.device()`` cache."""
+        return part.device_sharded(self.mesh, self.axis)
+
+    def _replicated(self, t: torch.Tensor) -> ShardedTensor:
+        """A constant (LUT, remap) with one copy on each shard's device."""
+        return ShardedTensor(t.to(d) for d in self.devices)
+
+    def _shard_args(self, args, s: int) -> list:
+        """Shard ``s``'s view of a program's flat arguments: its shard of
+        each ShardedTensor, every other argument as it is. A tensor on
+        another device than the shard's raises: no shard runs anywhere but
+        on its own device."""
+        dev = self.devices[s]
+        out = []
+        for a in args:
+            if isinstance(a, ShardedTensor):
+                a = a[s]
+            if isinstance(a, torch.Tensor) and a.device != dev:
+                raise RuntimeError(
+                    f"shard {s} runs on {dev}, but an input lies on {a.device}"
+                )
+            out.append(a)
+        return out
 
     # ------------------------------------------------------------------
 
@@ -271,27 +366,28 @@ class MeshFilterAggregate(CompiledFilterAggregate):
 
     def _program(self, sig: tuple, num_codes: int):
         """One part's dense program: (counts, first, per-agg partials) as
-        [num_codes] int64 tensors. Plain torch ops: there is nothing to
-        compile, so programs are not cached."""
+        [num_codes] int64 tensors, combined across shards, on shard 0's
+        device. Plain torch ops: there is nothing to compile, so programs
+        are not cached."""
         clause_sigs, ops, gshape = sig
+        sorted_path = num_codes > _SORTED_THRESHOLD
 
-        def step(*xs):
+        def local(xs, s):
             # xs layout: n, then per group col (dict: codes, valid, [remap]
             # | int: values, valid, window, base), then per present leaf
             # (int: fvals,fvalid,lit | nulllit: fvalid | dict:
             # fcodes,fvalid,lut), then per non-count agg (vals, vvalid /
             # fexact: 4 digit planes) — unpacked by _unpack_inputs.
             _i, c32, sel, rows, vlist, vops, vfmm = _unpack_inputs(
-                xs, gshape, clause_sigs, ops
+                xs, gshape, clause_sigs, ops, s
             )
-            fmm_global: dict = {}
-            if num_codes > _SORTED_THRESHOLD:
+            if sorted_path:
                 # Large K: one sort + prefix sums. Its min/max take the
                 # segment's first/last SORTED element, so full-range
                 # monotone float keys (fmm) are sentinel-safe — but EMPTY
                 # groups hold the +-2^62 identity, which transformed keys
                 # can exceed; widen those slots to the int64 extremes
-                # before the cross-part accumulate.
+                # before the cross-shard combine.
                 counts, first, outs_l = K.sorted_group_reduce(
                     c32, sel, rows, tuple(vlist), num_codes, tuple(vops)
                 )
@@ -309,42 +405,65 @@ class MeshFilterAggregate(CompiledFilterAggregate):
                 first = K.dense_group_reduce(
                     c32, rows, sel, num_codes, K.AGG_MIN
                 )
-                partials = []
-                for vi2, (v, func) in enumerate(zip(vlist, vops)):
-                    if vfmm[vi2]:
-                        # Monotone float keys span the full int64 range;
-                        # reduce lexicographically as (hi, lo) int32-range
-                        # halves (the compiled wide-min/max pattern).
-                        hi = v >> 32
-                        lo = v & 0xFFFFFFFF
-                        g_hi = K.dense_group_reduce(
-                            c32, hi, sel, num_codes, func
-                        )
-                        sel2 = sel & (hi == _take_clip(g_hi, c32))
-                        g_lo = K.dense_group_reduce(
-                            c32, lo, sel2, num_codes, func
-                        )
-                        fmm_global[vi2] = (g_hi << 32) | g_lo
-                        partials.append(None)
-                        continue
-                    partials.append(
-                        K.dense_group_reduce(c32, v, sel, num_codes, func)
-                    )
+                partials = [
+                    None
+                    if fmm
+                    else K.dense_group_reduce(c32, v, sel, num_codes, func)
+                    for v, func, fmm in zip(vlist, vops, vfmm)
+                ]
+            return c32, sel, vlist, vops, counts, first, partials
+
+        def fmm_reduce(shards, vi, func):
+            # Monotone float keys span the full int64 range; reduce
+            # lexicographically as (hi, lo) int32-range halves (the
+            # compiled wide-min/max pattern): the hi pass is combined
+            # across shards before each shard's lo pass selects the rows
+            # that hold the global hi.
+            combine = C.pmin if func == K.AGG_MIN else C.pmax
+            his = [sh[2][vi] >> 32 for sh in shards]
+            g_hi = combine([
+                K.dense_group_reduce(sh[0], hi, sh[1], num_codes, func)
+                for sh, hi in zip(shards, his)
+            ])
+            g_lo = combine([
+                K.dense_group_reduce(
+                    sh[0],
+                    sh[2][vi] & 0xFFFFFFFF,
+                    sh[1] & (hi == _take_clip(g, sh[0])),
+                    num_codes,
+                    func,
+                )
+                for sh, hi, g in zip(shards, his, g_hi)
+            ])
+            return (g_hi[0] << 32) | g_lo[0]
+
+        def step(*args):
+            shards = [
+                local(self._shard_args(args, s), s)
+                for s in C.axis_index(self.n_shards)
+            ]
+            vops = shards[0][3]
+            counts = C.psum([sh[4] for sh in shards])[0]
+            first = C.pmin([sh[5] for sh in shards])[0]
             outs = [counts, first]
             vi = 0
             for func, _is_float, fexact, fmm in ops:
                 if func == E.AGG_COUNT:
                     outs.append(counts)
                     continue
-                width = _op_width(func, fexact)
-                if fmm and vi in fmm_global:
+                if fmm and not sorted_path:
                     # empty groups clamp so the cross-part accumulate never
                     # sees wrapped sentinels
                     ident = _I64_MAX if func == E.AGG_MIN else _I64_MIN
-                    outs.append(torch.where(counts > 0, fmm_global[vi], ident))
-                else:
-                    outs += partials[vi : vi + width]
-                vi += width
+                    g = fmm_reduce(shards, vi, vops[vi])
+                    outs.append(torch.where(counts > 0, g, ident))
+                    vi += 1
+                    continue
+                for _w in range(_op_width(func, fexact)):
+                    outs.append(
+                        _COMBINE[vops[vi]]([sh[6][vi] for sh in shards])[0]
+                    )
+                    vi += 1
             return tuple(outs)
 
         return step
@@ -359,7 +478,7 @@ class MeshFilterAggregate(CompiledFilterAggregate):
             else:
                 args += [g.data, g.validity]
                 if gcol.remap is not None:
-                    args.append(self._remap_dev(gcol))
+                    args.append(self._replicated(self._remap_dev(gcol)))
         for lay in self._clause_layout(part):
             if isinstance(lay, str):
                 continue
@@ -371,7 +490,7 @@ class MeshFilterAggregate(CompiledFilterAggregate):
                 elif leaf.lit is None:
                     args += [f.validity]
                 else:
-                    args += [f.data, f.validity, self._leaf_lut_dev(i)]
+                    args += [f.data, f.validity, self._replicated(self._leaf_lut_dev(i))]
         for spec in self.aggs:
             if spec.func == E.AGG_COUNT:
                 continue
@@ -438,68 +557,10 @@ class MeshFilterAggregate(CompiledFilterAggregate):
 
     # ------------------------------------------------------------------
 
-    def _shuffle_program(self, sig, num_codes: int):
-        """One part's shuffle-route program: local SPARSE sort-reduce of
-        the selected rows into (code, count, first, partials) pairs — each
-        code at most once per part — then a scatter into the carried
-        [num_codes] owner tables (on more devices, the pairs would first be
-        exchanged to their owners)."""
-        clause_sigs, ops, gshape = sig
-        n_aggv = sum(
-            _op_width(fn, f)
-            for fn, _if, f, _m in ops
-            if fn != E.AGG_COUNT
-        )
-
-        def step(*xs):
-            i, gcodes, sel, rows, vlist, vops, _vfmm = _unpack_inputs(
-                xs, gshape, clause_sigs, ops
-            )
-            tabs = list(xs[i : i + 2 + n_aggv])
-            # Global stream position: the tables accumulate ACROSS parts
-            # inside the program, so each part's rows shift by its offset
-            # in the concatenated stream (the dense path adds it outside).
-            offset = xs[i + 2 + n_aggv]
-
-            # local sparse reduce: a stable sort of the rows by code puts
-            # the selected rows first, each code's rows in stream order;
-            # only that prefix is reduced (the one host sync of the part),
-            # one pair per distinct code.
-            n_sel = int(sel.sum())
-            if n_sel == 0:
-                return tuple(tabs)
-            keyv = torch.where(sel, gcodes.to(torch.int64), num_codes)
-            order = torch.sort(keyv, stable=True).indices[:n_sel]
-            ks = keyv[order]
-            head = K._diffs(ks)
-            starts = torch.nonzero(head).squeeze(1)
-            seg = torch.cumsum(head.to(torch.int32), 0) - 1
-            n_pairs = starts.shape[0]
-            pcode = ks[starts]
-            pcount = torch.diff(starts, append=starts.new_full((1,), n_sel))
-            pfirst = rows[order[starts]] + offset
-            out_tabs = [
-                tabs[0].index_add_(0, pcode, pcount),
-                tabs[1].scatter_reduce_(0, pcode, pfirst, reduce="amin"),
-            ]
-            # owner scatter into the carried tables (one owner: slot ==
-            # code); fmm ordering keys reduce like any int64 since no
-            # identity competes inside a pair
-            for vi, (v, func) in enumerate(zip(vlist, vops)):
-                t = tabs[2 + vi]
-                reduce = {K.AGG_SUM: "sum", K.AGG_MIN: "amin"}.get(func, "amax")
-                part = K._segment(v[order], seg, n_pairs, reduce)
-                if func == K.AGG_SUM:
-                    out_tabs.append(t.index_add_(0, pcode, part))
-                else:
-                    out_tabs.append(t.scatter_reduce_(0, pcode, part, reduce=reduce))
-            return tuple(out_tabs)
-
-        return step
-
-    def _execute_shuffle(self, parts, num_codes: int):
-        # per-table identities: counts, first, then per agg op (fmm
-        # ordering keys span full int64 -> int64-extreme identities)
+    def _table_fills(self) -> list:
+        """The shuffle route's carried tables and their identities: counts,
+        first, then per aggregation op (fmm ordering keys span full int64
+        -> int64-extreme identities)."""
         fills = [0, _BIG]
         for spec in self.aggs:
             if spec.func == E.AGG_COUNT:
@@ -517,29 +578,169 @@ class MeshFilterAggregate(CompiledFilterAggregate):
                 fills.append(_I64_MIN if plan2.fmm else -_BIG)
             else:
                 fills.append(0)
-        tabs = [
-            torch.full((num_codes,), f, dtype=torch.int64, device=self.device)
-            for f in fills
-        ]
-        offset = 0
-        for p in parts:
-            prog = self._shuffle_program(self._part_signature(p), num_codes)
-            tabs = list(prog(*self._part_args(p, self._part_data(p)), *tabs, offset))
-            offset += p.batch.num_rows
-        blob = torch.cat(tabs).cpu().numpy()
+        return fills
+
+    def _local_shuffle_program(self, sig, num_codes: int):
+        """One part's shuffle-route program on a one-shard mesh: the local
+        sparse reduce (``_sparse_pairs``), then a scatter into the carried
+        [num_codes] tables (one owner: slot == code)."""
+        clause_sigs, ops, gshape = sig
+
+        def step(*args, tabs, offset):
+            _i, gcodes, sel, rows, vlist, vops, _vfmm = _unpack_inputs(
+                self._shard_args(args, 0), gshape, clause_sigs, ops
+            )
+            # Global stream position: the tables accumulate ACROSS parts,
+            # so each part's rows shift by its offset in the concatenated
+            # stream (the dense path adds it outside).
+            cols = _sparse_pairs(gcodes, sel, rows + offset, vlist, vops, num_codes)
+            _scatter_pairs(tabs, cols[0], cols, vops)
+            return tabs
+
+        return step
+
+    def _shuffle_program(self, sig, num_codes: int, k_per: int, cap: int):
+        """One part's shuffle-route program over the mesh: each shard's
+        local sparse reduce into (code, count, first, partials) pairs (each
+        key at most once per sender, so a heavy key cannot overflow a
+        destination), the pair exchange to owner shard ``code % n_shards``
+        (gather-packed [n_shards, cap] buckets, an exact overflow ``pmax``,
+        ``all_to_all``), then each owner's scatter into its carried
+        [k_per] tables at slot ``code // n_shards`` — per-shard memory
+        O(K / n_shards), never a replicated [K] table. Returns (tables,
+        overflowed); an overflowed exchange leaves the tables as they
+        were."""
+        clause_sigs, ops, gshape = sig
+        n_shards = self.n_shards
+
+        def step(*args, tabs, offset):
+            pairs = []
+            vops = None
+            for s in C.axis_index(n_shards):
+                _i, gcodes, sel, rows, vlist, vops, _vfmm = _unpack_inputs(
+                    self._shard_args(args, s), gshape, clause_sigs, ops, s
+                )
+                pairs.append(
+                    _sparse_pairs(gcodes, sel, rows + offset, vlist, vops, num_codes)
+                )
+            packs = [bucket_slots(cols[0] % n_shards, n_shards, cap) for cols in pairs]
+            over = C.pmax([(pk[3] > cap).any().to(torch.int32) for pk in packs])
+            if bool(over[0]):
+                return tabs, True
+            # packed slots hold valid pairs exactly where in_bucket
+            recv = []
+            for j in range(len(pairs[0])):
+                packed = []
+                for cols, (order, src, in_bucket, _n) in zip(pairs, packs):
+                    c = cols[j]
+                    c_s = c[order][src] if c.shape[0] else torch.zeros_like(src)
+                    packed.append(
+                        torch.where(in_bucket, c_s, 0).reshape(n_shards, cap)
+                    )
+                recv.append([x.reshape(-1) for x in C.all_to_all(packed)])
+            r_valid = C.all_to_all([pk[2].reshape(n_shards, cap) for pk in packs])
+            for d in C.axis_index(n_shards):
+                # invalid slots scatter into the drop slot k_per, which the
+                # blob leaves out
+                slot = torch.where(
+                    r_valid[d].reshape(-1), recv[0][d] // n_shards, k_per
+                )
+                _scatter_pairs(tabs[d], slot, [col[d] for col in recv], vops)
+            crossed = sum(
+                int(pk[3].sum() - pk[3][s]) for s, pk in enumerate(packs)
+            )
+            EXCHANGE_STATS["exchanges"] += 1
+            EXCHANGE_STATS["pairs"] += crossed
+            EXCHANGE_STATS["bytes"] += (
+                n_shards * (n_shards - 1) * cap * (8 * len(recv) + 1)
+            )
+            return tabs, False
+
+        return step
+
+    def _execute_shuffle(self, parts, num_codes: int):
+        fills = self._table_fills()
+        if self.trivial:
+            k_per = num_codes
+            tabs = [
+                torch.full((num_codes,), f, dtype=torch.int64, device=self.devices[0])
+                for f in fills
+            ]
+            offset = 0
+            for p in parts:
+                prog = self._local_shuffle_program(self._part_signature(p), num_codes)
+                prog(*self._part_args(p, self._part_data(p)), tabs=tabs, offset=offset)
+                offset += p.batch.num_rows
+            blob = torch.cat(tabs).cpu().numpy()
+        else:
+            blob, k_per = self._mesh_shuffle_blob(parts, num_codes, fills)
         if self.allocator is not None:
             self.allocator.allocate(int(blob.nbytes))
         try:
-            return self._shuffle_epilogue(blob, num_codes)
+            return self._shuffle_epilogue(blob, num_codes, k_per)
         finally:
             # the one release of the reservation (the reference's epilogue
             # released it too, so a second query's bytes went with it)
             if self.allocator is not None:
                 self.allocator.free(int(blob.nbytes))
 
-    def _shuffle_epilogue(self, blob, num_codes):
+    def _mesh_shuffle_blob(self, parts, num_codes: int, fills):
+        """The shuffle route across shards: per-shard [k_per] owner tables
+        (k_per = K / n_shards rounded up to 128) carried across parts; an
+        overflowed pair exchange restarts the query with the bucket
+        capacity's oversubscription doubled, four attempts in all. Returns
+        (the tables as one host blob, shard after shard; k_per)."""
+        n_shards = self.n_shards
+        k_per = -(-num_codes // n_shards)
+        k_per = ((k_per + 127) // 128) * 128
+        oversub = 2.0
+        for _attempt in range(4):
+            max_rows = max((p.batch.num_rows for p in parts), default=1)
+            per_shard = -(-max_rows // n_shards)
+            cap = max(int(np.ceil(per_shard / n_shards * oversub / 128)) * 128, 128)
+            # one drop slot past each shard's k_per (sliced off below)
+            tabs = [
+                [torch.full((k_per + 1,), f, dtype=torch.int64, device=d) for f in fills]
+                for d in self.devices
+            ]
+            over = False
+            offset = 0
+            for p in parts:
+                prog = self._shuffle_program(
+                    self._part_signature(p), num_codes, k_per, cap
+                )
+                tabs, over = prog(
+                    *self._part_args(p, self._part_data(p)), tabs=tabs, offset=offset
+                )
+                if over:
+                    break
+                offset += p.batch.num_rows
+            if not over:
+                break
+            oversub *= 2.0
+        else:
+            raise NotCompilable("shuffle-tier pair exchange overflow")
+        EXCHANGE_STATS["oversub"] = oversub
+        dev0 = self.devices[0]
+        blob = torch.cat([
+            shard_tabs[ti][:k_per].to(dev0)
+            for ti in range(len(fills))
+            for shard_tabs in tabs
+        ])
+        return blob.cpu().numpy(), k_per
+
+    def _shuffle_epilogue(self, blob, num_codes, k_per):
+        # table ti is [n_shards * k_per]: global slot g = j * k_per + slot
+        # on shard j holds code slot * n_shards + j
+        k_pad = k_per * self.n_shards
+        g_of_code = None
+        if not self.trivial:
+            codes = np.arange(num_codes, dtype=np.int64)
+            g_of_code = (codes % self.n_shards) * k_per + codes // self.n_shards
+
         def table(ti):
-            return blob[ti * num_codes : (ti + 1) * num_codes]
+            t = blob[ti * k_pad : (ti + 1) * k_pad]
+            return t if g_of_code is None else t[g_of_code]
 
         counts_np = table(0)
         first_np = table(1)
@@ -607,9 +808,10 @@ class MeshFilterAggregate(CompiledFilterAggregate):
         except NotCompilable as e:
             if "group code space" not in str(e):
                 raise
-            # Shuffle route: past the [K] program's ceiling, aggregate via
-            # local sparse reduce + owner tables (the role of
-            # aggregate.go:430-470's overflow splitting).
+            # Shuffle route: past the replicated-[K] ceiling, aggregate via
+            # local sparse reduce + pair exchange + owner tables of
+            # O(K/shards) memory per shard (the role of
+            # aggregate.go:430-470's overflow splitting, distributed).
             self._gplan, num_codes = self._group_remap(
                 parts, max_codes=SHUFFLE_MAX_CODES
             )
@@ -626,7 +828,7 @@ class MeshFilterAggregate(CompiledFilterAggregate):
                 self.output_projection,
             )
 
-        dev = self.device
+        dev = self.devices[0]
         counts_total = torch.zeros((num_codes,), dtype=torch.int64, device=dev)
         global_first = torch.full(
             (num_codes,), _BIG, dtype=torch.int64, device=dev
@@ -771,6 +973,18 @@ class MeshFilterAggregate(CompiledFilterAggregate):
         )
 
 
+def lower_plan_mesh(plan, exec_options) -> MeshFilterAggregate:
+    """Match an optimized plan onto the mesh executor; raises NotCompilable
+    when the shape doesn't hold (the engine falls back to the local tiers
+    and the generic DAG)."""
+    from ..compiled import match_plan
+
+    spec = match_plan(plan, exec_options)
+    obj = MeshFilterAggregate(spec, exec_options.mesh, exec_options.mesh_axis)
+    obj.allocator = exec_options.allocator
+    return obj
+
+
 # ---------------------------------------------------------------------------
 # Local dense tier: the single-device large-K path
 
@@ -786,6 +1000,11 @@ class DenseLocalAggregate(MeshFilterAggregate):
         from .mesh import make_mesh
 
         super().__init__(spec, make_mesh(1, device=spec.table.device), "shards")
+
+    def _part_data(self, part):
+        # Share the compiled tier's per-part device cache: one upload
+        # serves both tiers.
+        return part.device()
 
 
 def lower_plan_dense(plan, exec_options) -> DenseLocalAggregate:

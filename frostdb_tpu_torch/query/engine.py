@@ -17,11 +17,6 @@ from ..columnbatch import ColumnBatch
 from ..memorylimit import LimitAllocator
 
 
-# The reason recorded for the reference's distributed tier, which this
-# package does not have yet.
-NOT_PORTED = "not ported"
-
-
 class LocalEngine:
     def __init__(
         self,
@@ -191,9 +186,14 @@ class LocalQueryBuilder:
             return True
 
         if self.engine.exec_options.mesh is not None:
-            # Distributed serving is not ported yet; the query falls
-            # through to the local tiers.
-            reasons["mesh"] = NOT_PORTED
+            # Distributed serving first: the same query lowered as shard
+            # programs over the mesh (parallel/mesh_exec.py), identical to
+            # the single-stream engine on any shard count; NotCompilable
+            # falls through to the local tiers.
+            from ..parallel.mesh_exec import lower_plan_mesh
+
+            if try_tier("mesh", lower_plan_mesh):
+                return
         if self.engine.exec_options.compiled_serving:
             # Local fast tiers, fastest-first; each PROVES the generic
             # engine's exact result or declines with a recorded reason:

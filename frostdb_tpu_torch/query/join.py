@@ -11,11 +11,10 @@ sides' key columns are mapped into one shared dense code space on the host
 (exact ``np.unique`` compaction, the same trick as the compiled path's
 compact code remap); the match expansion — the O(output) part — runs as
 torch ops on the left table's device (ops/kernels.join_expand), and the
-pairs come back in one device-to-host copy. Output rows are canonically
-ordered (left stream row, right row).
-
-Not ported here: the distributed CSR join over a device mesh
-(``mesh_join_pairs``), which comes with multi-device execution.
+pairs come back in one device-to-host copy; with a mesh of more than one
+shard the expansion is the distributed CSR join (``mesh_join_pairs``,
+parallel/join.py). Output rows are canonically ordered (left stream row,
+right row).
 """
 
 from __future__ import annotations
@@ -29,6 +28,7 @@ from ..columnbatch import (
     ColumnBatch,
     KIND_DICT,
     KIND_FLOAT64,
+    KIND_INT64,
     KIND_LIST,
     KIND_UINT64,
 )
@@ -278,16 +278,88 @@ def local_join_pairs(
     return li, rrow, matched_np
 
 
+def mesh_join_pairs(lcodes, lvalid, rcodes, rvalid, num_codes, how, mesh, axis):
+    """Distributed CSR expansion over the device mesh (parallel/join.py):
+    both sides hash-partition on the shared key code so equal keys co-locate
+    and the match is shard-local; row ids ride along so the host
+    materializes the same (left row, right row) pair set as the local
+    expansion. Canonical (left, right) lexsort makes the output identical
+    to single-device execution."""
+    from ..parallel.join import distributed_join_auto
+    from ..parallel.mesh import PartitionedTable
+
+    nl = len(lcodes)
+    nr = len(rcodes)
+    lcb = ColumnBatch(
+        [
+            Column("__code__", KIND_INT64, lcodes.astype(np.int64), lvalid),
+            Column(
+                "__rowid__",
+                KIND_INT64,
+                np.arange(nl, dtype=np.int64),
+                np.ones(nl, dtype=np.bool_),
+            ),
+        ],
+        nl,
+    )
+    rcb = ColumnBatch(
+        [
+            Column("__code__", KIND_INT64, rcodes.astype(np.int64), rvalid),
+            Column(
+                "__rowid__",
+                KIND_INT64,
+                np.arange(nr, dtype=np.int64),
+                np.ones(nr, dtype=np.bool_),
+            ),
+        ],
+        nr,
+    )
+    lpt = PartitionedTable.from_batch(lcb, mesh, axis, hash_key="__code__")
+    rpt = PartitionedTable.from_batch(rcb, mesh, axis, hash_key="__code__")
+    totals, li, rjvalid, rvs, cap = distributed_join_auto(
+        lpt, rpt, "__code__", num_codes, ["__rowid__"], how
+    )
+    n_shards = lpt.n_shards
+    per_shard = lpt.n_pad // n_shards
+    lrowid = np.asarray(lpt.column("__rowid__").data)
+    lrowlive = np.asarray(lpt.column("__rowid__").validity)
+    li = np.asarray(li)
+    rjvalid = np.asarray(rjvalid)
+    rrowid = np.asarray(rvs[0])
+    lrows_parts = []
+    rrows_parts = []
+    match_parts = []
+    for s in range(n_shards):
+        t = int(totals[s])
+        sl = slice(s * cap, s * cap + t)
+        lp = s * per_shard + li[sl]
+        live = lrowlive[lp]  # drop padding-row phantom slots (left_outer)
+        lrows_parts.append(lrowid[lp][live])
+        m = rjvalid[sl][live]
+        match_parts.append(m)
+        rrows_parts.append(np.where(m, rrowid[sl][live], np.int64(-1)))
+    lrows = np.concatenate(lrows_parts) if lrows_parts else np.zeros(0, np.int64)
+    rrows = np.concatenate(rrows_parts) if rrows_parts else np.zeros(0, np.int64)
+    matched = (
+        np.concatenate(match_parts) if match_parts else np.zeros(0, np.bool_)
+    )
+    order = np.lexsort((rrows, lrows))
+    return lrows[order], rrows[order], matched[order]
+
+
 def join_batches(
     left: ColumnBatch,
     right: ColumnBatch | None,
     on,
     how: str,
     device=DEFAULT_DEVICE,
+    mesh=None,
+    mesh_axis: str = "shards",
 ) -> ColumnBatch | None:
     """Join two unified host batches; the workhorse behind the HashJoin
     operator (and directly reachable for library use). The match expansion
-    runs on ``device``."""
+    runs on ``device``, or across ``mesh`` when it has more than one
+    shard."""
     dev = resolve_device(device)
     nl = left.num_rows
     nr = right.num_rows if right is not None else 0
@@ -309,9 +381,14 @@ def join_batches(
     total = int(np.maximum(mc, 1).sum()) if how == "left_outer" else int(mc.sum())
     if total == 0:
         return None
-    lrows, rrows, matched = local_join_pairs(
-        lcodes, lvalid, rcodes, rvalid, num_codes, total, how, dev
-    )
+    if mesh is not None and mesh.shape[mesh_axis] > 1 and nr > 0:
+        lrows, rrows, matched = mesh_join_pairs(
+            lcodes, lvalid, rcodes, rvalid, num_codes, how, mesh, mesh_axis
+        )
+    else:
+        lrows, rrows, matched = local_join_pairs(
+            lcodes, lvalid, rcodes, rvalid, num_codes, total, how, dev
+        )
 
     out_cols = [c.take(lrows) for c in left.columns]
     left_names = {c.name for c in left.columns}

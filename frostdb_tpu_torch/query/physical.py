@@ -1079,7 +1079,13 @@ class HashJoin(PhysicalOperator):
         from .join import join_batches
 
         return join_batches(
-            left, right, self.join.on, self.join.how, device=self.device
+            left,
+            right,
+            self.join.on,
+            self.join.how,
+            device=self.device,
+            mesh=self.options.mesh,
+            mesh_axis=self.options.mesh_axis,
         )
 
     def draw(self) -> Diagram:
@@ -1299,8 +1305,9 @@ class ExecOptions:
         # kernels when the pattern is provable (compiled.lower_plan); the
         # generic operator DAG is the fallback and the semantic oracle.
         self.compiled_serving = compiled_serving
-        # Multi-device execution is not ported yet; the engine refuses a
-        # mesh (query/engine.py).
+        # Distributed execution over a device mesh
+        # (parallel/mesh.make_mesh): the mesh serving tier and the
+        # HashJoin's mesh expansion.
         self.mesh = mesh
         self.mesh_axis = mesh_axis
         # Optional MetricsRegistry: the engine counts queries per serving

@@ -310,32 +310,43 @@ def test_filters_and_ordered_emission(ordered):
 
 
 def test_mesh_option_records_not_ported_and_dense_serves():
-    """With a one-device mesh option the distributed tier records "not
-    ported" (the reference's mesh tier would serve) and the local dense
-    tier serves the same rows."""
+    """With a one-shard mesh option the mesh tier serves, as the
+    reference's does, with the same rows as the JAX package's mesh tier and
+    its dense tier; no tier records "not ported"."""
+    from frostdb_tpu.parallel.mesh import make_mesh as jmake_mesh
+
     _s, jdb, _t = TMG._setup(n_parts=2, rows=4000, k_et=60, k_l=60)
     make_q = agg(
         lambda E: [E.Sum(E.Col("value"))],
         lambda E: [E.Col("example_type"), E.Col("labels.label1")],
     )
     ref, _got = run_both(jdb, make_q)
+    jeng = JEngine(jdb.table_provider(), exec_options=JOptions(mesh=jmake_mesh(1)))
+    out = []
+    make_q(jeng, JE).execute(out.append)
+    assert jeng.last_serving_path == "mesh"
     pdb = carry(jdb)
     peng = PEngine(
         pdb.table_provider(), exec_options=POptions(mesh=make_mesh(1, device="cpu"))
     )
-    out = []
-    make_q(peng, PE).execute(out.append)
-    assert peng.last_fallback_reasons["mesh"] == "not ported"
-    assert peng.last_serving_path == "dense"
-    assert FZ.rows(out) == ref[0]
+    got = []
+    make_q(peng, PE).execute(got.append)
+    assert peng.last_serving_path == "mesh"
+    assert peng.last_fallback_reasons == jeng.last_fallback_reasons == {}
+    assert FZ.rows(got) == FZ.rows(out) == ref[0]
 
 
 def test_make_mesh_is_one_device_only():
+    """A CPU mesh takes one shard by default and as many as asked for, all
+    on the CPU (the reference's 8 virtual host devices)."""
     mesh = make_mesh(device="cpu")
     assert mesh.shape == {"shards": 1}
     assert mesh.devices == (torch.device("cpu"),)
-    with pytest.raises(NotImplementedError):
-        make_mesh(8, device="cpu")
+    mesh8 = make_mesh(8, device="cpu")
+    assert mesh8.shape == {"shards": 8}
+    assert mesh8.devices == (torch.device("cpu"),) * 8
+    with pytest.raises(ValueError):
+        make_mesh(0, device="cpu")
 
 
 # ---------------------------------------------------------------------------

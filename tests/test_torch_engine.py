@@ -313,8 +313,8 @@ def test_ordered_segment_sum_signed_zeros_and_empty_segments():
 def test_unported_tiers_fall_back_exactly(directed):
     """A group-by past the compiled tier's 2048 codes is served by the dense
     tier on both packages, with the same rows and decline reasons. Under a
-    one-device mesh option the distributed tier, which is not ported,
-    records "not ported" and the dense tier still serves."""
+    one-shard mesh option the mesh tier serves, as the reference's does,
+    with the same rows."""
     from frostdb_tpu_torch.parallel.mesh import make_mesh
 
     jdb, pdb = directed
@@ -340,8 +340,8 @@ def test_unported_tiers_fall_back_exactly(directed):
     got = []
     make_q(eng, PE).execute(got.append)
     assert FZ.rows(got) == ref
-    assert eng.last_serving_path == "dense"
-    assert eng.last_fallback_reasons["mesh"] == "not ported"
+    assert eng.last_serving_path == "mesh"
+    assert eng.last_fallback_reasons == {}
 
 
 # ---------------------------------------------------------------------------
@@ -370,7 +370,8 @@ import frostdb_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(frostdb_tpu_torch.__path__, "frostdb_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-for name in ("parallel", "parallel.mesh", "parallel.mesh_exec", "sqlparse", "logictest",
+for name in ("parallel", "parallel.mesh", "parallel.mesh_exec", "parallel.collectives",
+             "parallel.distributed", "parallel.shuffle", "parallel.join", "sqlparse", "logictest",
              "wal", "disklevel", "snapshot", "recovery", "store", "avro", "iceberg",
              "records", "exprpb", "gen.storage_pb2", "tools.dbtool"):
     assert "frostdb_tpu_torch." + name in names, name
