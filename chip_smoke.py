@@ -64,6 +64,20 @@ port's SQL front end and must take the same tier and give the same rows.
    every acknowledged row and to the same shape on the in-memory table,
    each kernel call equal to its plain version, timed and profiled; one
    shape over gRPC on localhost, and dbtool on the store's WAL and snapshot.
+8. the rest of the package (phase 9, after the kernel checks and paths
+   1-7): tools/verify's cases at two seeds, at the reference's 750-3000
+   rows a part and at 1024 times that, each on the compiled tier (K1-K3)
+   equal byte for byte to the generic DAG; tests/test_scan_fanout.py's
+   five shapes on the 2-part table with the scan fan-out forced on and
+   off, equal byte for byte, lane threads counted; 4 writers and a
+   compactor under two readers running a compiled aggregate (K1), every
+   result equal to numpy over the inserts at a watermark the reader saw;
+   a traced compiled and a traced generic query (span trees, counters);
+   the pruning shapes (parts pruned as the layout says, results equal to
+   numpy and to an unpruned scan); a struct table through a query,
+   rotation and recovery; the aggregate shapes' latency on the engine
+   table with the compiled read path's view and dictionary lock and
+   without them, in alternating rounds.
 
 Last, each kernel is checked and timed on the inputs its path gave it
 (K1, K2 and K3 on every shape that launches them), beside its plain
@@ -2633,6 +2647,715 @@ def _durability(AK, t_engine, n_parts, device, root):
 
 
 # ---------------------------------------------------------------------------
+# The rest of the package on the card (phase 9): tools/verify's cases, the
+# scan fan-out's lanes, concurrent writers with compiled readers, tracing,
+# pruning and struct schemas
+
+VERIFY_SCALES = (1, 1024)  # 1024: 0.77M-3.1M rows per part
+VERIFY_SEEDS = (0, 1)
+FANOUT_LANES = 8
+# Parca's ingest width (sample_definition) from 4 writers at once.
+CC_WRITERS = 4
+CC_INSERTS = 16
+CC_ROWS = 1 << 16
+CC_LIT = 40
+# Each writer's pause between inserts: the four together then ingest a
+# steady ~2.6M rows/s instead of one burst, so the readers see the table
+# change between their queries.
+CC_PAUSE_S = 0.1
+PRUNE_PARTS = 8
+# Rows per insert: at 2^15 the eight inserts stay eight label-disjoint parts
+# (below L0's 15 MiB); at 2^20 the LSM merges them.
+PRUNE_ROWS = (1 << 15, 1 << 20)
+STRUCT_ROWS = 1 << 16
+# Rounds of the read path's A/B: its two sides differ by microseconds, and
+# ten rounds of 1-2 ms queries read the host clock's spread.
+READ_PATH_ROUNDS = 30
+
+
+def fanout_shapes(E):
+    """tests/test_scan_fanout.py's five shapes: (name, fn(engine) ->
+    query, ordered)."""
+    return [
+        ("group_sum_first_occurrence_order",
+         lambda e: e.scan_table("t2").aggregate(
+             [E.Sum(E.Col("value")), E.Count(E.Col("value"))], [E.Col("example_type")]),
+         False),
+        ("filtered_group_minmax",
+         lambda e: e.scan_table("t2").filter(E.Col("timestamp").gt(300)).aggregate(
+             [E.Min(E.Col("value")), E.Max(E.Col("value"))], [E.Col("stacktrace")]),
+         False),
+        ("distinct",
+         lambda e: e.scan_table("t2").distinct(E.Col("example_type"), E.Col("stacktrace")),
+         False),
+        ("limit_of_limits",
+         lambda e: e.scan_table("t2").project(E.Col("timestamp"), E.Col("value")).limit(
+             E.Literal(37)),
+         False),
+        ("ordered_aggregation",
+         lambda e: e.scan_table("t2").aggregate([E.Sum(E.Col("value"))], [E.Col("example_type")]),
+         True),
+    ]
+
+
+# The span trees (names and nesting) of tests/test_tracing_integration.py's
+# two traced queries, as both packages give them on the CPU
+# (tests/test_torch_tracing.py holds this constant to the JAX package's).
+TRACE_TREES = {
+    "compiled": ("query/execute", [("plan/optimize", []), ("compiled/execute", [])]),
+    "generic": ("query/execute", [
+        ("plan/optimize", []), ("physical/build", []),
+        ("physical/execute", [("table/iterator", [])]),
+    ]),
+}
+
+
+def trace_queries(E):
+    """(name, fn(engine) -> query, compiled) of the two traced queries."""
+    return [
+        ("compiled",
+         lambda e: e.scan_table("t").aggregate([E.Sum(E.Col("value"))], [E.Col("example_type")]),
+         True),
+        ("generic",
+         lambda e: e.scan_table("t").filter(E.Col("timestamp").gt_eq(10)).aggregate(
+             [E.Sum(E.Col("value"))], [E.Col("labels.label1")]),
+         False),
+    ]
+
+
+def span_names(span):
+    return (span.name, [span_names(c) for c in span.children])
+
+
+def trace_table(db):
+    """tests/test_tracing_integration.py's table: 50 rows in one sorted
+    insert."""
+    from frostdb_tpu_torch.columnbatch import Column, ColumnBatch, KIND_DICT, KIND_INT64
+    from frostdb_tpu_torch.schema import sample_definition
+    from frostdb_tpu_torch.table import TableConfig
+
+    table = db.table("t", TableConfig(schema=sample_definition()))
+    n = 50
+    d_et, d_l, d_st = (table.dictionary(f) for f in ("example_type", "labels", "stacktrace"))
+    ones = np.ones(n, dtype=bool)
+    table.insert_record(ColumnBatch([
+        Column("example_type", KIND_DICT, *d_et.encode(["cpu"] * n), d_et),
+        Column("labels.label1", KIND_DICT, *d_l.encode([f"l{i % 3}" for i in range(n)]), d_l),
+        Column("stacktrace", KIND_DICT, *d_st.encode(["s"] * n), d_st),
+        Column("timestamp", KIND_INT64, np.arange(n, dtype=np.int64), ones),
+        Column("value", KIND_INT64, np.ones(n, dtype=np.int64), ones),
+    ], n), sort=True)
+    return table
+
+
+def traced_run(db):
+    """The two traced queries on ``db``'s table ``t``: per query (name,
+    rows, serving tier, span names, root attributes), then the
+    ``queries_served_*`` counters."""
+    from frostdb_tpu_torch.metrics import MetricsRegistry
+    from frostdb_tpu_torch.query import expr as E
+    from frostdb_tpu_torch.query.engine import LocalEngine
+    from frostdb_tpu_torch.query.physical import ExecOptions
+    from frostdb_tpu_torch.tracing import Tracer
+
+    out = []
+    registry = MetricsRegistry()
+    for name, make_q, compiled in trace_queries(E):
+        tracer = Tracer()
+        engine = LocalEngine(db.table_provider(), ExecOptions(
+            compiled_serving=compiled, tracer=tracer, metrics=registry))
+        batches = run_shape(engine, make_q)
+        (root,) = tracer.roots
+        out.append((name, as_rows(batches), engine.last_serving_path, span_names(root),
+                    dict(root.attributes)))
+    served = {p: registry.counter(f"queries_served_{p}").value() for p in ("compiled", "generic")}
+    return out, served
+
+
+def verify_part(device) -> None:
+    """tools/verify's cases at each VERIFY_SCALES and seed: compiled ==
+    generic byte for byte, served by compiled, K1-K4 launched (K3 for
+    min/max); launch counts printed per case."""
+    from frostdb_tpu_torch.tools import verify as V
+
+    for scale in VERIFY_SCALES:
+        t0 = time.perf_counter()
+        for seed in VERIFY_SEEDS:
+            for name, fn in V.CASES:
+                r = V.run_case(fn, seed, device, scale)
+                if r["problems"]:
+                    raise AssertionError(
+                        f"verify x{scale} seed {seed} {name}: " + "; ".join(r["problems"]))
+                counts = {k: n for k, n in r["launches"].items() if n}
+                log(f"verify x{scale} seed {seed} {name}: ok, {len(r['compiled'])} groups, "
+                    f"{r['rows']} rows, launches {json.dumps(counts)}")
+        log(f"verify: {len(VERIFY_SEEDS) * len(V.CASES)} cases at rows scale {scale} "
+            f"in {time.perf_counter() - t0:.1f} s")
+
+
+def fanout_part(db) -> None:
+    """test_scan_fanout's shapes on t2 through the generic DAG with
+    concurrency=8: the fan-out forced on (threshold 0) must equal it forced
+    off, byte for byte, and lane threads must have run."""
+    import threading
+
+    import frostdb_tpu_torch.config as C
+    import frostdb_tpu_torch.table as T
+    from frostdb_tpu_torch.query import expr as E
+    from frostdb_tpu_torch.query.engine import LocalEngine
+    from frostdb_tpu_torch.query.physical import ExecOptions
+
+    lanes = []
+    thread_cls = T.threading.Thread
+
+    class LaneThread(thread_cls):
+        def __init__(self, *a, **kw):
+            lanes.append(threading.current_thread().name)
+            super().__init__(*a, **kw)
+
+    def run(make_q, ordered, threshold):
+        engine = LocalEngine(db.table_provider(), ExecOptions(
+            concurrency=FANOUT_LANES, compiled_serving=False, ordered_aggregations=ordered))
+        old = C.PARALLEL_SCAN_MIN_ROWS
+        C.PARALLEL_SCAN_MIN_ROWS = threshold
+        T.threading.Thread = LaneThread
+        try:
+            t = time.perf_counter()
+            out = as_rows(run_shape(engine, make_q))
+            return out, (time.perf_counter() - t) * 1e3, engine.last_serving_path
+        finally:
+            T.threading.Thread = thread_cls
+            C.PARALLEL_SCAN_MIN_ROWS = old
+
+    for name, make_q, ordered in fanout_shapes(E):
+        serial, serial_ms, path = run(make_q, ordered, 1 << 60)
+        n_serial = len(lanes)
+        if path != "generic" or n_serial:
+            raise AssertionError(f"fanout {name}: serial run on {path}, {n_serial} lane threads")
+        times = []
+        for _ in range(2):
+            fanned, ms, _p = run(make_q, ordered, 0)
+            if fanned != serial:
+                raise AssertionError(f"fanout {name}: lanes differ from the serial scan")
+            times.append(ms)
+        if not lanes:
+            raise AssertionError(f"fanout {name}: no lane thread ran")
+        log(f"fanout {name}: {len(serial)} rows byte-identical with {len(lanes)} lane "
+            f"threads over 2 runs; serial {serial_ms:.1f} ms, fanned out "
+            f"{', '.join(f'{t:.1f}' for t in times)} ms")
+        lanes.clear()
+
+
+def cc_batch(table, rng):
+    """One writer's insert: CC_ROWS rows of 64 labels, and its per-label
+    (sum, count) of value over rows with timestamp >= CC_LIT."""
+    from frostdb_tpu_torch.columnbatch import Column, ColumnBatch, KIND_DICT, KIND_INT64
+
+    n = CC_ROWS
+    d_et, d_l, d_st = (table.dictionary(f) for f in ("example_type", "labels", "stacktrace"))
+    labels = rng.integers(0, NUM_CODES, n)
+    ts = rng.integers(0, 1000, n).astype(np.int64)
+    val = rng.integers(0, 1000, n).astype(np.int64)
+    ones = np.ones(n, dtype=bool)
+    # Each insert encodes its label values (the writers' first encodes
+    # race) and maps its rows through their codes.
+    label_codes = d_l.encode([f"g{k}" for k in range(NUM_CODES)])[0]
+    batch = ColumnBatch([
+        Column("example_type", KIND_DICT, np.full(n, d_et.code("cpu"), np.int32), ones, d_et),
+        Column("labels.label1", KIND_DICT, label_codes[labels], ones, d_l),
+        Column("stacktrace", KIND_DICT, np.full(n, d_st.code("stack"), np.int32), ones, d_st),
+        Column("timestamp", KIND_INT64, ts, ones),
+        Column("value", KIND_INT64, val, ones),
+    ], n)
+    m = ts >= CC_LIT
+    agg = np.stack([
+        np.bincount(labels[m], weights=val[m], minlength=NUM_CODES),
+        np.bincount(labels[m], minlength=NUM_CODES),
+    ]).astype(np.int64)
+    return batch, agg
+
+
+def concurrency_part(AK, device) -> None:
+    """CC_WRITERS writers of CC_INSERTS inserts each, a compactor and two
+    readers on one table: every reader query is band_ts_ge on the compiled
+    tier (K1), and each result must equal the numpy sum over the inserts at
+    or below a watermark between the ones read before and after it."""
+    import threading
+
+    from frostdb_tpu_torch.db import ColumnStore
+    from frostdb_tpu_torch.query import expr as E
+    from frostdb_tpu_torch.query.engine import LocalEngine
+    from frostdb_tpu_torch.schema import sample_definition
+    from frostdb_tpu_torch.table import TableConfig
+
+    t0 = time.perf_counter()
+    store = ColumnStore(device=device)
+    db = store.db("cc")
+    table = db.table("t", TableConfig(schema=sample_definition()))
+    create_tx = db.high_watermark()
+    by_tx: dict = {}
+    seen: list = []
+    errors: list = []
+    compactions = [0]
+    stop = threading.Event()
+    filt, aggs = E.Col("timestamp").gt_eq(CC_LIT), [E.Sum(E.Col("value")), E.Count(E.Col("value"))]
+
+    def writer(wid):
+        try:
+            rng = np.random.default_rng(SEED + 100 + wid)
+            for _ in range(CC_INSERTS):
+                batch, agg = cc_batch(table, rng)
+                by_tx[table.insert_record(batch)] = agg
+                time.sleep(CC_PAUSE_S)
+        except Exception as e:  # raised below on the main thread
+            errors.append(f"writer {wid}: {e!r}")
+
+    def compactor():
+        # A pass a millisecond: a loop that never waits holds the GIL from
+        # the writers and readers.
+        try:
+            while not stop.wait(0.001):
+                table.active_block.index.compact_level(0)
+                compactions[0] += 1
+        except Exception as e:
+            errors.append(f"compactor: {e!r}")
+
+    def reader():
+        try:
+            engine = LocalEngine(db.table_provider())
+            while db.high_watermark() == create_tx and not stop.wait(0.001):
+                pass  # the empty table's answer is no test
+            while not stop.is_set():
+                lo = db.high_watermark()
+                out = run_query(engine, "t", filt, aggs, E)
+                seen.append((lo, db.high_watermark(), as_rows(out), engine.last_serving_path))
+        except Exception as e:
+            errors.append(f"reader: {e!r}")
+
+    k1 = AK.LAUNCHES["fused_band_group_sum_count"]
+    writers = [threading.Thread(target=writer, args=(w,)) for w in range(CC_WRITERS)]
+    aux = [threading.Thread(target=f) for f in (compactor, reader, reader)]
+    for t in aux + writers:
+        t.start()
+    for t in writers:
+        t.join()
+    stop.set()
+    for t in aux:
+        t.join()
+    torch_sync()
+    ingest_s = time.perf_counter() - t0
+    k1 = AK.LAUNCHES["fused_band_group_sum_count"] - k1
+    if errors:
+        raise AssertionError(f"concurrency: {errors[:3]}")
+    final = db.high_watermark()
+    if final != create_tx + CC_WRITERS * CC_INSERTS:
+        raise AssertionError(f"concurrency: watermark {final} after {CC_WRITERS * CC_INSERTS} inserts")
+    prefix = np.zeros((2, NUM_CODES), np.int64)
+    at = {create_tx: {}}
+    for tx in range(create_tx + 1, final + 1):
+        prefix = prefix + by_tx[tx]
+        at[tx] = {f"g{k}": (int(prefix[0, k]), int(prefix[1, k]))
+                  for k in range(NUM_CODES) if prefix[1, k]}
+    engine = LocalEngine(db.table_provider())
+    seen.append((final, final, as_rows(run_query(engine, "t", filt, aggs, E)),
+                 engine.last_serving_path))
+    paths = {p for *_x, p in seen}
+    if paths != {"compiled"}:
+        raise AssertionError(f"concurrency: readers served by {paths}")
+    bad = []
+    for lo, hi, rows, _p in seen:
+        got = {r[0][1]: tuple(v for _n, v in r[1:]) for r in rows}
+        if not any(got == at[w] for w in range(lo, hi + 1)):
+            bad.append((lo, hi))
+    if bad:
+        raise AssertionError(f"concurrency: {len(bad)} of {len(seen)} results are no prefix of "
+                             f"the inserts (watermarks {bad[:3]})")
+    if db.device.type == "cuda" and not k1:
+        raise AssertionError("concurrency: the readers launched no K1")
+    watermarks = {w for lo, hi, *_x in seen for w in (lo, hi)}
+    nonempty = sum(1 for _lo, _hi, rows, _p in seen if rows)
+    log(f"concurrency: {CC_WRITERS} writers x {CC_INSERTS} inserts x {CC_ROWS} rows with "
+        f"{compactions[0]} L0 compactions and 2 readers in {ingest_s:.2f} s; "
+        f"{len(seen)} compiled results ({nonempty} non-empty) at {len(watermarks)} "
+        f"watermarks, each == numpy over "
+        f"the inserts at a watermark it saw; K1 launches {k1}")
+
+
+def torch_sync() -> None:
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def tracing_part(AK, device) -> None:
+    """The two traced queries on test_tracing_integration's table on the
+    device: TRACE_TREES' span trees, the paths, the counters; the compiled
+    query launches K1-K4."""
+    from frostdb_tpu_torch.db import ColumnStore
+
+    db = ColumnStore(device=device).db("tr")
+    trace_table(db)
+    before = sum(AK.LAUNCHES[k] for k in SLICE1_KERNELS)
+    got, served = traced_run(db)
+    launched = sum(AK.LAUNCHES[k] for k in SLICE1_KERNELS) - before
+    for name, rows, path, tree, attrs in got:
+        if path != name or attrs.get("path") != name or tree != TRACE_TREES[name]:
+            raise AssertionError(f"tracing {name}: path {path}, tree {tree}")
+        if not rows:
+            raise AssertionError(f"tracing {name}: no rows")
+    if got[0][1] != [(("example_type", "cpu"), ("sum(value)", 50))]:
+        raise AssertionError(f"tracing: compiled rows {got[0][1]}")
+    if sorted(got[1][1]) != [(("labels.label1", f"l{k}"), ("sum(value)", s))
+                             for k, s in ((0, 13), (1, 14), (2, 13))]:
+        raise AssertionError(f"tracing: generic rows {got[1][1]}")
+    if served != {"compiled": 1, "generic": 1}:
+        raise AssertionError(f"tracing: counters {served}")
+    if db.device.type == "cuda" and not launched:
+        raise AssertionError("tracing: the compiled query launched no kernel")
+    log(f"tracing: span trees {json.dumps({n: t for n, _r, _p, t, _a in got})}, "
+        f"queries_served {json.dumps(served)}, {launched} kernel launches")
+
+
+def prune_shapes(E):
+    """tests/test_pruning.py's shapes as global aggregates: (name, filter or
+    None, aggregation, the labels l{i} the filter matches or None)."""
+    label, v = E.Col("labels.label1"), E.Col("value")
+    return [
+        ("label_eq", label.eq("l3"), E.Sum(v), {3}),
+        ("label_absent", label.eq("nope"), E.Sum(v), set()),
+        ("regex", label.regex_match("l[05]$"), E.Sum(v), {0, 5}),
+        ("max", None, E.Max(v), None),
+        ("min", None, E.Min(v), None),
+        ("sum", None, E.Sum(v), None),
+    ]
+
+
+def part_labels(part) -> set:
+    """The label numbers i of the labels l{i} a part holds."""
+    col = part.batch.column("labels.label1")
+    values = np.asarray(col.dictionary.values)[np.unique(col.values)]
+    return {int(s[1:]) for s in values}
+
+
+def expected_pruning(parts, func, wanted):
+    """(parts pruned, parts scanned) of a global aggregate over ``parts``
+    in scan order (newest first), from each part's labels and values: a
+    filter prunes the parts holding no label it matches; max and min skip
+    a part whose range cannot beat the best so far (the push-down); sum
+    skips nothing."""
+    pruned = 0
+    best = None
+    for p in parts:
+        if wanted is not None:
+            pruned += not part_labels(p) & wanted
+        elif func in ("max", "min"):
+            v = p.batch.column("value").values
+            cand = int(v.max()) if func == "max" else int(v.min())
+            if best is not None and (cand <= best if func == "max" else cand >= best):
+                pruned += 1
+                continue
+            best = cand
+    return pruned, len(parts) - pruned
+
+
+def pruning_part(device, rows) -> None:
+    """tests/test_pruning.py's shapes on PRUNE_PARTS sorted inserts of
+    ``rows`` rows, insert i holding only label l{i} and values in
+    [i * 10^7, i * 10^7 + 10^6). The LSM merges inserts past its level
+    sizes, so the expected counts come from the parts the table holds once
+    synced (expected_pruning). Each shape's global aggregate (the generic
+    DAG's pruning and push-down) prunes and scans as expected and equals
+    numpy; a filtered shape also equals its run with prune_part turned off
+    (an unpruned scan) and, grouped by example_type, prunes as many parts
+    on the compiled tier with the same value."""
+    import frostdb_tpu_torch.lsm as L
+    import frostdb_tpu_torch.table as T
+    from frostdb_tpu_torch.columnbatch import Column, ColumnBatch, KIND_DICT, KIND_INT64
+    from frostdb_tpu_torch.db import ColumnStore
+    from frostdb_tpu_torch.query import expr as E
+    from frostdb_tpu_torch.query.engine import LocalEngine
+    from frostdb_tpu_torch.query.physical import ExecOptions
+    from frostdb_tpu_torch.schema import sample_definition
+    from frostdb_tpu_torch.table import TableConfig
+
+    t0 = time.perf_counter()
+    db = ColumnStore(device=device).db("p")
+    table = db.table("t", TableConfig(schema=sample_definition()))
+    rng = np.random.default_rng(SEED + 5)
+    d_et, d_l, d_st = (table.dictionary(f) for f in ("example_type", "labels", "stacktrace"))
+    labs, vals = [], []
+    ones = np.ones(rows, dtype=bool)
+    for i in range(PRUNE_PARTS):
+        x = i * 10**7 + rng.integers(0, 10**6, rows).astype(np.int64)
+        table.insert_record(ColumnBatch([
+            Column("example_type", KIND_DICT, np.full(rows, d_et.code("cpu"), np.int32), ones, d_et),
+            Column("labels.label1", KIND_DICT, np.full(rows, d_l.code(f"l{i}"), np.int32), ones, d_l),
+            Column("stacktrace", KIND_DICT, np.full(rows, d_st.code("s"), np.int32), ones, d_st),
+            Column("timestamp", KIND_INT64, np.arange(i * rows, (i + 1) * rows, dtype=np.int64), ones),
+            Column("value", KIND_INT64, x, ones),
+        ], rows), sort=True)
+        labs.append(np.full(rows, i))
+        vals.append(x)
+    table.sync()
+    labs, vals = np.concatenate(labs), np.concatenate(vals)
+    parts = table.collect_parts(db.high_watermark())
+    m = table.metrics
+
+    def run(filt, agg, grouped):
+        """(value or None, serving tier, parts pruned, parts scanned)."""
+        engine = LocalEngine(db.table_provider(), ExecOptions(compiled_serving=grouped))
+        q = engine.scan_table("t")
+        if filt is not None:
+            q = q.filter(filt)
+        p0, s0 = m.parts_pruned.value(), m.parts_scanned.value()
+        groups = [E.Col("example_type")] if grouped else []
+        rows_out = as_rows(run_shape(engine, lambda e: q.aggregate([agg], groups)))
+        if grouped and rows_out and rows_out[0][0] != ("example_type", "cpu"):
+            raise AssertionError(f"pruning: grouped rows {rows_out}")
+        value = rows_out[0][-1][1] if rows_out else None
+        return (value, engine.last_serving_path, m.parts_pruned.value() - p0,
+                m.parts_scanned.value() - s0)
+
+    keep = L.prune_part, T.prune_part
+    report = []
+    for name, filt, agg, wanted in prune_shapes(E):
+        pruned, scanned = expected_pruning(parts, agg.func, wanted)
+        x = vals if wanted is None else vals[np.isin(labs, list(wanted))]
+        want = getattr(x, agg.func)().item() if len(x) else None
+        got = run(filt, agg, False)
+        if got != (want, "generic", pruned, scanned):
+            raise AssertionError(f"pruning {name}: (value, tier, pruned, scanned) {got}, "
+                                 f"expected {(want, 'generic', pruned, scanned)}")
+        if filt is not None:
+            L.prune_part = T.prune_part = lambda *a, **k: False
+            try:
+                unpruned = run(filt, agg, False)
+            finally:
+                L.prune_part, T.prune_part = keep
+            if unpruned[0] != want or unpruned[2] != 0:
+                raise AssertionError(f"pruning {name}: unpruned scan {unpruned}, want {want}")
+            fast = run(filt, agg, True)
+            if fast[:3] != (want, "compiled", pruned):
+                raise AssertionError(f"pruning {name}: grouped on {fast[1]}: {fast}")
+        report.append(f"{name} {pruned} pruned")
+    layout = [sorted(part_labels(p)) for p in parts]
+    log(f"pruning: {PRUNE_PARTS} inserts x {rows} rows in {len(parts)} parts (labels "
+        f"{json.dumps(layout)}); " + ", ".join(report)
+        + "; every value == numpy, filtered shapes == the unpruned scan and == the "
+        f"compiled tier grouped; {time.perf_counter() - t0:.1f} s")
+
+
+def nested_def():
+    """tests/test_nested_schema.py's definition: a struct group of three
+    dictionary leaves (one nested a level deeper) beside name, timestamp
+    and value."""
+    from frostdb_tpu_torch.schema import (
+        ColumnDef, ENCODING_RLE_DICTIONARY, GroupDef, SchemaDef, SortingColumnDef,
+        StorageLayout, TYPE_INT64, TYPE_STRING,
+    )
+
+    s = StorageLayout(TYPE_STRING, nullable=True, encoding=ENCODING_RLE_DICTIONARY)
+    return SchemaDef(
+        name="nested",
+        columns=(
+            GroupDef("attributes", nodes=(
+                ColumnDef("region", s), ColumnDef("zone", s),
+                GroupDef("owner", nodes=(ColumnDef("team", s),)),
+            ), nullable=True),
+            ColumnDef("name", s),
+            ColumnDef("timestamp", StorageLayout(TYPE_INT64)),
+            ColumnDef("value", StorageLayout(TYPE_INT64)),
+        ),
+        sorting_columns=(SortingColumnDef("name", "asc"), SortingColumnDef("timestamp", "asc")),
+    )
+
+
+def struct_batch(rng, n, ts0):
+    """An Arrow record batch with a struct column ``attributes``, and the
+    region, zone and team of each row (None for null)."""
+    import pyarrow as pa
+
+    regions = np.array(["us", "eu", "ap", None], dtype=object)[rng.integers(0, 4, n)]
+    zones = np.array(["a", "b", "c"], dtype=object)[rng.integers(0, 3, n)]
+    teams = np.array(["red", "blue", None], dtype=object)[rng.integers(0, 3, n)]
+    values = rng.integers(0, 1000, n).astype(np.int64)
+    struct = pa.StructArray.from_arrays([
+        pa.array(list(regions), type=pa.string()),
+        pa.array(list(zones), type=pa.string()),
+        pa.StructArray.from_arrays([pa.array(list(teams), type=pa.string())], names=["team"]),
+    ], names=["region", "zone", "owner"])
+    rb = pa.RecordBatch.from_arrays([
+        struct, pa.array(["x"] * n, type=pa.string()),
+        pa.array(np.arange(ts0, ts0 + n, dtype=np.int64)), pa.array(values),
+    ], names=["attributes", "name", "timestamp", "value"])
+    return rb, regions, zones, teams, values
+
+
+def struct_queries(db):
+    """Sum of value by attributes.region, where attributes.owner.team is
+    "red", and by attributes.zone where it is: ({region: sum}, red sum,
+    {zone: red sum}, the three serving tiers)."""
+    from frostdb_tpu_torch.query import expr as E
+    from frostdb_tpu_torch.query.engine import LocalEngine
+
+    engine = LocalEngine(db.table_provider())
+    by_region = {r[0][1]: r[1][1] for r in as_rows(run_shape(engine, lambda e: e.scan_table(
+        "t").aggregate([E.Sum(E.Col("value"))], [E.Col("attributes.region")])))}
+    p1 = engine.last_serving_path
+    red_team = E.Col("attributes.owner.team").eq("red")
+    red = as_rows(run_shape(engine, lambda e: e.scan_table("t").filter(red_team).aggregate(
+        [E.Sum(E.Col("value"))], [])))
+    p2 = engine.last_serving_path
+    by_zone = {r[0][1]: r[1][1] for r in as_rows(run_shape(engine, lambda e: e.scan_table(
+        "t").filter(red_team).aggregate([E.Sum(E.Col("value"))], [E.Col("attributes.zone")])))}
+    return by_region, red[0][0][1], by_zone, (p1, p2, engine.last_serving_path)
+
+
+def struct_part(AK, device) -> None:
+    """Struct ingest, the two queries, block rotation, a second insert,
+    close and recovery from the WAL on the device: each answer equal to
+    numpy, the recovered table's equal to the closed one's."""
+    import shutil
+    import tempfile
+
+    from frostdb_tpu_torch.db import ColumnStore
+    from frostdb_tpu_torch.table import TableConfig
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="frostdb-struct-")
+    try:
+        rng = np.random.default_rng(SEED + 6)
+        store = ColumnStore(storage_path=f"{root}/db", enable_wal=True, device=device)
+        db = store.db("test")
+        table = db.table("t", TableConfig(schema=nested_def()))
+        cols = [], [], [], []
+
+        def insert(ts0):
+            rb, *arrays = struct_batch(rng, STRUCT_ROWS, ts0)
+            table.insert_record(rb)
+            for col, a in zip(cols, arrays):
+                col.append(a)
+
+        def expected():
+            r, z, tm, v = (np.concatenate(x) for x in cols)
+            by = {key: int(v[r == key].sum()) for key in ("us", "eu", "ap")}
+            by[None] = int(v[np.equal(r, None)].sum())
+            red = tm == "red"
+            return by, int(v[red].sum()), {k: int(v[red & (z == k)].sum()) for k in ("a", "b", "c")}
+
+        insert(0)
+        before = sum(AK.LAUNCHES[k] for k in SLICE1_KERNELS)
+        first = struct_queries(db)
+        if first[:3] != expected() or first[3][2] != "compiled":
+            raise AssertionError(f"struct: {first} != numpy {expected()}")
+        table.rotate_block()
+        insert(STRUCT_ROWS)
+        second = struct_queries(db)
+        if second[:3] != expected():
+            raise AssertionError(f"struct after rotation: {second[:3]} != numpy {expected()}")
+        launched = sum(AK.LAUNCHES[k] for k in SLICE1_KERNELS) - before
+        store.close()
+        store2 = ColumnStore(storage_path=f"{root}/db", enable_wal=True, device=device)
+        db2 = store2.db("test")
+        groups = [g.name for g in db2.get_table("t").schema().groups()]
+        recovered = struct_queries(db2)
+        store2.close()
+        if groups != ["attributes"] or recovered != second:
+            raise AssertionError(f"struct recovery: groups {groups}, {recovered} != {second}")
+        if db2.device.type == "cuda" and not launched:
+            raise AssertionError("struct: no kernel launched")
+        log(f"struct: 2 inserts x {STRUCT_ROWS} rows, rotation and recovery; tiers "
+            f"{first[3]} / {recovered[3]}; results == numpy before and after recovery; "
+            f"{launched} kernel launches; {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def read_path_cost(db) -> None:
+    """The five aggregate shapes' latency on ``t`` with the compiled tier's
+    read path as it is (parts collected inside ``Table.view``; dictionary
+    reads and writes under the dictionary's lock) and with both undone (the
+    watermark read unregistered, no lock), READ_PATH_ROUNDS rounds in
+    alternating order; the rows must be the same either way."""
+    import contextlib
+
+    from frostdb_tpu_torch.compiled import CompiledFilterAggregate
+    from frostdb_tpu_torch.query import expr as E
+    from frostdb_tpu_torch.query.engine import LocalEngine
+
+    table = db.get_table("t")
+    engine = LocalEngine(db.table_provider())
+    visible_parts = CompiledFilterAggregate._visible_parts
+    locks = {name: d._lock for name, d in table.dictionaries.items()}
+
+    def unregistered(self):
+        tx = self.table.db.high_watermark()
+        return self.table.collect_parts(tx, include_sources=True)
+
+    @contextlib.contextmanager
+    def undone():
+        CompiledFilterAggregate._visible_parts = unregistered
+        for d in table.dictionaries.values():
+            d._lock = contextlib.nullcontext()
+        try:
+            yield
+        finally:
+            CompiledFilterAggregate._visible_parts = visible_parts
+            for name, d in table.dictionaries.items():
+                d._lock = locks[name]
+
+    walls: dict = {}
+    for i in range(READ_PATH_ROUNDS):
+        order = ("as is", "undone") if i % 2 == 0 else ("undone", "as is")
+        for name, filt, aggs, _k in shapes(E, 100 + 37 * i):
+            rows = {}
+            for mode in order:
+                with undone() if mode == "undone" else contextlib.nullcontext():
+                    torch_sync()
+                    t1 = time.perf_counter()
+                    rows[mode] = as_rows(run_query(engine, "t", filt, aggs, E))
+                    walls.setdefault((name, mode), []).append((time.perf_counter() - t1) * 1e3)
+            if rows["as is"] != rows["undone"] or engine.last_serving_path != "compiled":
+                raise AssertionError(f"read path cost {name}: rows differ or not compiled")
+    report = []
+    for name, *_x in shapes(E, 0):
+        a, u = walls[(name, "as is")], walls[(name, "undone")]
+        faster = sum(x < y for x, y in zip(a, u))
+        report.append(f"{name} {statistics.median(a):.3f} / {statistics.median(u):.3f} "
+                      f"({faster} of {len(a)} rounds faster as is)")
+    log("read path as is / undone, median ms over alternating rounds on t: "
+        + "; ".join(report))
+
+
+def rest_phase(AK, db, device="cuda"):
+    """Phase 9, with the launch counts set to 0 before and read after:
+    tools/verify's cases at rows scales 1 and 1024, test_scan_fanout's
+    shapes on t2 with the fan-out forced on and off, concurrent writers and
+    a compactor under compiled readers, two traced queries, the pruning
+    shapes, a struct table through rotation and recovery, and the compiled
+    read path's cost on t. Returns the launch counts."""
+    t0 = time.perf_counter()
+    AK.reset_launches()
+    verify_part(device)
+    fanout_part(db)
+    concurrency_part(AK, device)
+    tracing_part(AK, device)
+    for rows in PRUNE_ROWS:
+        pruning_part(device, rows)
+    struct_part(AK, device)
+    read_path_cost(db)
+    launches = dict(AK.LAUNCHES)
+    log(f"rest phase launches: {json.dumps(launches)}")
+    if device == "cuda":
+        missing = [k for k in SLICE1_KERNELS[:3] if not launches[k]]
+        if missing:
+            raise AssertionError(f"rest phase launched no {missing}")
+    log(f"rest phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Kernel bench phase (K5)
 
 
@@ -2779,6 +3502,8 @@ def main() -> int:
             keep_captures(captured, shape, [(name, kargs)])
     sql_part(engine)
     for k, n in durability_phase(AK, engine, args.parts).items():
+        launches[k] += n
+    for k, n in rest_phase(AK, db).items():
         launches[k] += n
     live_rows = {k: total for k in KERNELS}
     live_rows["filter_group_sum_count"] = BENCH_ROWS

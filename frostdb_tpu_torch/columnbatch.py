@@ -24,6 +24,7 @@ imports on hosts without pyarrow.
 from __future__ import annotations
 
 import hashlib
+import threading
 from dataclasses import dataclass, field as dc_field
 from typing import Iterable, Mapping, Sequence
 
@@ -234,9 +235,16 @@ class Dictionary:
 
     Backed by the native C++ runtime (native/frostdb_native.cpp) when the
     toolchain is available; the pure-Python fallback is hash-identical.
+
+    Writers of one table encode into its dictionaries from their own
+    threads, and the native calls run without the GIL, so every read or
+    write of the entries holds the dictionary's lock: one value, one code.
+    (The reference takes no lock; concurrent first encodes of a value can
+    give it two codes, or corrupt the native arena.)
     """
 
     def __init__(self, use_native: bool | None = None) -> None:
+        self._lock = threading.RLock()
         self._native = None
         if use_native is not False:
             from . import native as _native_mod
@@ -255,45 +263,50 @@ class Dictionary:
     @property
     def values(self) -> list[str]:
         if self._native is not None:
-            return self._native.values()
+            with self._lock:
+                return self._native.values()
         return self._values
 
     def code(self, value: str) -> int:
-        if self._native is not None:
-            codes, _valid = self._native.encode_batch([value])
-            return int(codes[0])
-        c = self._index.get(value)
-        if c is None:
-            c = len(self._values)
-            self._values.append(value)
-            self._index[value] = c
-            self._hashes.append(_hash64(value))
-        return c
+        with self._lock:
+            if self._native is not None:
+                codes, _valid = self._native.encode_batch([value])
+                return int(codes[0])
+            c = self._index.get(value)
+            if c is None:
+                c = len(self._values)
+                self._values.append(value)
+                self._index[value] = c
+                self._hashes.append(_hash64(value))
+            return c
 
     def lookup(self, value: str) -> int | None:
         """Code for value, or None if the value has never been seen."""
-        if self._native is not None:
-            return self._native.lookup(value)
-        return self._index.get(value)
+        with self._lock:
+            if self._native is not None:
+                return self._native.lookup(value)
+            return self._index.get(value)
 
     def hash_for_code(self) -> np.ndarray:
-        if self._native is not None:
-            return self._native.hashes()
-        return np.asarray(self._hashes, dtype=np.int64)
+        with self._lock:
+            if self._native is not None:
+                return self._native.hashes()
+            return np.asarray(self._hashes, dtype=np.int64)
 
     def encode(self, values: Iterable[str | None]) -> tuple[np.ndarray, np.ndarray]:
         vals = list(values)
-        if self._native is not None:
-            return self._native.encode_batch(vals)
         codes: list[int] = []
         valid: list[bool] = []
-        for v in vals:
-            if v is None:
-                codes.append(0)
-                valid.append(False)
-            else:
-                codes.append(self.code(v))
-                valid.append(True)
+        with self._lock:
+            if self._native is not None:
+                return self._native.encode_batch(vals)
+            for v in vals:
+                if v is None:
+                    codes.append(0)
+                    valid.append(False)
+                else:
+                    codes.append(self.code(v))
+                    valid.append(True)
         return (
             np.asarray(codes, dtype=np.int32),
             np.asarray(valid, dtype=np.bool_),

@@ -59,6 +59,7 @@ the per-part fallback.
 from __future__ import annotations
 
 import functools
+import threading
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -1000,25 +1001,33 @@ class CompiledFilterAggregate:
     # at the sum of the parts' padded sizes.
 
     _SUPERPART_CACHE_ENTRIES = 4
+    # Queries on several threads share a table's cache: its lookups,
+    # insertions and evictions hold this lock. (The reference evicts
+    # unlocked: another thread's eviction between its ``iter`` and ``pop``
+    # raises.)
+    _SUPERPART_LOCK = threading.Lock()
 
     def _superpart(self, parts):
         key = tuple(id(p) for p in parts)
-        cache = getattr(self.table, "_superpart_cache", None)
-        if cache is None:
-            cache = {}
-            self.table._superpart_cache = cache
-        sp = cache.get(key)
+        with self._SUPERPART_LOCK:
+            cache = getattr(self.table, "_superpart_cache", None)
+            if cache is None:
+                cache = self.table._superpart_cache = {}
+            sp = cache.get(key)
         if sp is None:
             row_offsets = np.zeros(len(parts) + 1, dtype=np.int64)
             np.cumsum([p.device().n_pad for p in parts], out=row_offsets[1:])
-            sp = {
+            new = {
                 "parts": list(parts),  # pin ids
                 "planes": {},
                 "row_offsets": row_offsets,
             }
-            while len(cache) >= self._SUPERPART_CACHE_ENTRIES:
-                cache.pop(next(iter(cache)))
-            cache[key] = sp
+            with self._SUPERPART_LOCK:
+                sp = cache.get(key)
+                if sp is None:
+                    while len(cache) >= self._SUPERPART_CACHE_ENTRIES:
+                        cache.pop(next(iter(cache)))
+                    cache[key] = sp = new
         return sp
 
     def _sp_plane(self, sp, kind: str, name):
@@ -1532,18 +1541,23 @@ class CompiledFilterAggregate:
         """The table's parts visible at the high watermark. Persisted
         blocks take part as cached device-resident parts (store.go:123's
         cache/dedup), so the tiers stay on after block rotation; a source
-        without the block API declines the tier."""
+        without the block API declines the tier.
+
+        The parts are collected inside ``Table.view``, registered as an
+        active reader as the generic scan is: a compaction cuts at the
+        oldest registered view, so it cannot merge visible parts into one
+        this watermark cannot see. (The reference reads the watermark
+        unregistered here.)"""
         from .table import SourceWithoutBlockAPI
 
-        tx = (
-            self.table.db.high_watermark()
-            if self.table.db is not None
-            else 2**63
-        )
+        parts = []
         try:
-            return self.table.collect_parts(tx, include_sources=True)
+            self.table.view(
+                lambda tx: parts.extend(self.table.collect_parts(tx, include_sources=True))
+            )
         except SourceWithoutBlockAPI:
             raise NotCompilable("a data source lacks the block API")
+        return parts
 
     def _execute(self) -> ColumnBatch:
         parts = self._filter_parts(self._visible_parts())

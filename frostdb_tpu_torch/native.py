@@ -39,7 +39,10 @@ def load() -> Optional[ctypes.CDLL]:
         os.makedirs(_CACHE, exist_ok=True)
         so_path = os.path.join(_CACHE, f"libfrostdb_native-{digest}.so")
         if not os.path.exists(so_path):
-            tmp = so_path + ".tmp"
+            # A temp name of this process's own: processes building the
+            # same source at once each write their own file, and the
+            # atomic rename lets any one of them win.
+            tmp = f"{so_path}.{os.getpid()}.tmp"
             subprocess.run(
                 [
                     "g++",

@@ -244,8 +244,11 @@ class Table:
     def dictionary(self, family: str) -> Dictionary:
         d = self.dictionaries.get(family)
         if d is None:
-            d = Dictionary()
-            self.dictionaries[family] = d
+            # setdefault is atomic: writers asking for a new family at once
+            # all get the one stored first. (The reference stores each new
+            # dictionary, so one writer's codes could land in a dictionary
+            # the table then drops.)
+            d = self.dictionaries.setdefault(family, Dictionary())
         return d
 
     # ------------------------------------------------------------------

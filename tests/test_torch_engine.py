@@ -10,9 +10,11 @@ codes, part boundaries and scan order are the same on both sides. Queries
 are built once with the JAX expression classes and converted.
 """
 
+import ast
 import pathlib
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -60,6 +62,54 @@ def carry(jdb, names=("t",)):
         schema = PSchemaDef.from_dict(jt.config.schema.to_dict())
         table_from_numpy(pdb, name, schema, dicts, parts)
     return pdb
+
+
+class _ToPort(ast.NodeTransformer):
+    """Rewrites a module's imports of the JAX package to the port's, and
+    gives every ``ColumnStore(...)`` call ``device="cpu"``."""
+
+    @staticmethod
+    def _name(name):
+        head, _, rest = name.partition(".")
+        if head != "frostdb_tpu":
+            return name
+        return "frostdb_tpu_torch" + ("." + rest if rest else "")
+
+    def visit_Import(self, node):
+        for a in node.names:
+            new = self._name(a.name)
+            if new != a.name and a.asname is None and "." in a.name:
+                raise ValueError(f"port_view needs `import {a.name} as ...`")
+            a.name = new
+        return node
+
+    def visit_ImportFrom(self, node):
+        if node.module and node.level == 0:
+            node.module = self._name(node.module)
+        return node
+
+    def visit_Call(self, node):
+        self.generic_visit(node)
+        f = node.func
+        name = getattr(f, "id", None) or getattr(f, "attr", None)
+        if name == "ColumnStore" and not any(k.arg == "device" for k in node.keywords):
+            node.keywords.append(ast.keyword("device", ast.Constant("cpu")))
+        return node
+
+
+def port_view(module):
+    """A second copy of a test module of the JAX package, compiled from
+    its own source with every import of the JAX package (local imports
+    too) taken from the port, and every store made on the CPU. Its helpers
+    and test functions run the reference's scenario, with the reference's
+    own assertions, through the port."""
+    with open(module.__file__) as f:
+        tree = _ToPort().visit(ast.parse(f.read(), module.__file__))
+    view = types.ModuleType(f"port_view.{module.__name__}")
+    view.__file__ = module.__file__
+    code = compile(ast.fix_missing_locations(tree), module.__file__, "exec")
+    exec(code, view.__dict__)
+    return view
 
 
 def run_jax(jdb, make_q, compiled=False):
@@ -373,7 +423,7 @@ for name in names:
 for name in ("parallel", "parallel.mesh", "parallel.mesh_exec", "parallel.collectives",
              "parallel.distributed", "parallel.shuffle", "parallel.join", "sqlparse", "logictest",
              "wal", "disklevel", "snapshot", "recovery", "store", "avro", "iceberg",
-             "records", "exprpb", "gen.storage_pb2", "tools.dbtool"):
+             "records", "exprpb", "gen.storage_pb2", "tools.dbtool", "tools.verify"):
     assert "frostdb_tpu_torch." + name in names, name
 import chip_smoke
 import kernel_variants
