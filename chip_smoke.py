@@ -78,6 +78,15 @@ port's SQL front end and must take the same tier and give the same rows.
    rotation and recovery; the aggregate shapes' latency on the engine
    table with the compiled read path's view and dictionary lock and
    without them, in alternating rounds.
+9. the reference's differential fuzz (phase 10, after phase 9):
+   frostdb_tpu_torch/tools/fuzz.py's scenarios (random schemas, data with
+   null keys and float edge values, CNF filters, every aggregation,
+   windowed keys, scans, ORDER BY + LIMIT, four kinds of join) at the
+   reference's 38 seeds, 60 more aggregate seeds and the directed kernel
+   shapes, each query's generic, compiled and mesh runs equal on the card
+   and equal to the same query on a CPU copy of its tables; then at 1024
+   times the rows, generic == compiled (== mesh) on the card; K1-K4 and K6
+   must launch and compiled, compiled_scan, compiled_join and mesh serve.
 
 Last, each kernel is checked and timed on the inputs its path gave it
 (K1, K2 and K3 on every shape that launches them), beside its plain
@@ -92,6 +101,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import statistics
@@ -891,18 +901,6 @@ def engine_phase(AK, args, device="cuda"):
     return launches, captured, (db, engine, generic, data)
 
 
-def pairwise_sum(v) -> float:
-    """The generic DAG's float sum on the GPU for one group
-    (kernels.ordered_segment_sum): a binary tree over the group's values in
-    stream order, rooted at the first, then + 0.0."""
-    v = np.array(v, dtype=np.float64)
-    s = 1
-    while s < len(v):
-        v[0:len(v) - s:2 * s] += v[s::2 * s]
-        s *= 2
-    return float((v[0] if len(v) else 0.0) + 0.0)
-
-
 def _groups(labels, x):
     """{label: its values in stream order}."""
     keys, inv = np.unique(labels, return_inverse=True)
@@ -920,6 +918,8 @@ def float_sums(db, engine, generic, E, lit: int = 40) -> None:
     (math.fsum). Outside it the compiled tier declines, and the generic DAG
     must give the sum in its fixed order, computed on the host from the
     parts in scan order, bit for bit, on two runs."""
+    from frostdb_tpu_torch.tools.fuzz import pairwise_sum
+
     filt, aggs = E.Col("timestamp").gt_eq(lit), [E.Sum(E.Col("floatvalue"))]
 
     def exact(rng, n):
@@ -2978,7 +2978,8 @@ def concurrency_part(AK, device) -> None:
         f"{compactions[0]} L0 compactions and 2 readers in {ingest_s:.2f} s; "
         f"{len(seen)} compiled results ({nonempty} non-empty) at {len(watermarks)} "
         f"watermarks, each == numpy over "
-        f"the inserts at a watermark it saw; K1 launches {k1}")
+        f"the inserts at a watermark it saw; K1 launches {k1} for the "
+        f"{len(seen) - 1} reader results (the last result is the check after the writers)")
 
 
 def torch_sync() -> None:
@@ -3356,6 +3357,97 @@ def rest_phase(AK, db, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# The reference's differential fuzz on the card (phase 10)
+
+# (a): the reference's 38 seeds, the directed shapes and 60 more aggregate
+# seeds at its 200-1500 rows a part, each query repeated on a CPU copy.
+FUZZ_EXTRA_SEEDS = 60
+# (b): at 1024 x the rows (205k-1.5M a part), these seeds of each scenario,
+# generic == compiled (== mesh) on the card.
+FUZZ_SCALE = 1024
+# At that scale aggregate seeds 1000-1003 select nothing on the compiled
+# tier; 1007, 1009 and 1011 launch K2 and K3.
+FUZZ_SCALED_SEEDS = {"aggregates": 12, "scan and epilogue": 2, "joins": 2, "int-key joins": 2}
+FUZZ_KERNELS = ("fused_band_group_sum_count", "group_sum_count", "group_min_max",
+                "fused_cmp_group_sum_count", "block_compact")
+FUZZ_TIERS = ("compiled", "compiled_scan", "compiled_join", "mesh")
+
+
+def nan_sign_check(device) -> None:
+    """The generic DAG's float sums on ``device`` give a NaN the sign the
+    reference's row-order sum gives it: [inf, -inf] -> -NaN (no NaN
+    input), else the last NaN input's sign. Phase 10's first run found the
+    GPU's sums all +NaN (at aggregate seed 1000, query 2)."""
+    import torch
+
+    from frostdb_tpu_torch.ops import kernels as K
+
+    vals = np.array([np.inf, -np.inf, 1.0, np.nan, 2.0, -np.nan, np.nan, 3.0])
+    keys = torch.tensor([0, 0, 1, 1, 2, 2, 3, 3], device=device)
+    ones = torch.ones(8, dtype=torch.bool, device=device)
+    _ng, _first, _k, _kv, (sums,), _v = K.group_aggregate(
+        (keys,), (ones,), (torch.from_numpy(vals).to(device),), (ones,), ones, (K.AGG_SUM,))
+    signs = np.signbit(sums[:4].cpu().numpy()).tolist()
+    if signs != [True, False, True, False] or not np.isnan(sums[:4].cpu().numpy()).all():
+        raise AssertionError(f"NaN float sums on {device}: {sums[:4].tolist()}, sign bits {signs}")
+
+
+def fuzz_phase(AK, device="cuda"):
+    """Phase 10, with the launch counts set to 0 before and read after:
+    the NaN float-sum signs (nan_sign_check), then
+    frostdb_tpu_torch/tools/fuzz.py, the port of the reference's
+    differential fuzz, (a) at rows scale 1 against a CPU copy of every
+    table and (b) at FUZZ_SCALE. Every tier of every query must give the
+    generic DAG's rows (the CPU's, but for out-of-gate float sums equal to
+    the GPU's pairwise tree, counted); on a GPU, K1-K4 and K6 must launch
+    and compiled, compiled_scan, compiled_join and mesh each serve. Prints
+    the serve counts, the launches per kernel and per template variant, and
+    the card's allocated bytes at the start, after (a) and at the end.
+    Returns the launch counts."""
+    import torch
+
+    from frostdb_tpu_torch.tools import fuzz as F
+
+    on_gpu = torch.device(device).type == "cuda"
+
+    def allocated():
+        return torch.cuda.memory_allocated() if on_gpu else 0
+
+    t0 = time.perf_counter()
+    mem = [allocated()]
+    nan_sign_check(device)
+    AK.reset_launches()
+    # The fuzz runs the cycle collector after each seed (tools/fuzz.collect):
+    # the earlier phases' live objects are frozen out of its walks.
+    gc.freeze()
+    try:
+        a = F.run(device, 1, FUZZ_EXTRA_SEEDS, against_cpu=True,
+                  log=lambda s: log(f"fuzz x1 {s}"))
+        mem.append(allocated())
+        b = F.run(device, FUZZ_SCALE, seeds=FUZZ_SCALED_SEEDS, directed=False,
+                  log=lambda s: log(f"fuzz x{FUZZ_SCALE} {s}"))
+        mem.append(allocated())
+    finally:
+        gc.unfreeze()
+    launches = dict(AK.LAUNCHES)
+    served = a.served + b.served
+    log(f"fuzz phase: {a.queries} queries at rows scale 1 ({a.float_sum_cases} out-of-gate "
+        f"float sums differ from the CPU's, each == the pairwise tree), {b.queries} at "
+        f"{FUZZ_SCALE} (largest table {b.max_rows} rows); served {json.dumps(dict(served))}")
+    log(f"fuzz phase launches: {json.dumps(launches)}; by template: "
+        f"{json.dumps(dict(sorted(AK.TEMPLATE_LAUNCHES.items())))}")
+    if on_gpu:
+        missing = [k for k in FUZZ_KERNELS if not launches[k]]
+        unserved = [t for t in FUZZ_TIERS if not served[t]]
+        if missing or unserved:
+            raise AssertionError(f"fuzz phase launched no {missing}, no query served by {unserved}")
+    log(f"fuzz phase: allocated bytes {mem[0]} at the start, {mem[1]} after rows scale 1, "
+        f"{mem[2]} at the end; {time.perf_counter() - t0:.1f} s, of which "
+        f"{a.collect_s + b.collect_s:.1f} s in the cycle collector between seeds")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Kernel bench phase (K5)
 
 
@@ -3504,6 +3596,8 @@ def main() -> int:
     for k, n in durability_phase(AK, engine, args.parts).items():
         launches[k] += n
     for k, n in rest_phase(AK, db).items():
+        launches[k] += n
+    for k, n in fuzz_phase(AK).items():
         launches[k] += n
     live_rows = {k: total for k in KERNELS}
     live_rows["filter_group_sum_count"] = BENCH_ROWS

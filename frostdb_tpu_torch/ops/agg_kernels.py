@@ -64,7 +64,10 @@ _I32_MIN = -(2**31)
 _I32_MAX = 2**31 - 1
 
 # Launches of each kernel (counted only where the kernel is launched; the
-# plain versions do not count).
+# plain versions do not count), and of each sum/count template variant
+# under "name[variant]" (the band's clause count, the compare's op).
+# Queries on several threads launch at once, so both count under one lock
+# (count_launch).
 LAUNCHES: dict[str, int] = {
     "group_sum_count": 0,
     "fused_band_group_sum_count": 0,
@@ -73,14 +76,27 @@ LAUNCHES: dict[str, int] = {
     "filter_group_sum_count": 0,
     "block_compact": 0,
 }
+TEMPLATE_LAUNCHES: dict[str, int] = {}
+_launch_lock = threading.Lock()
 
 # Rows per block of block_compact (pallas_agg.ROWS_PER_SUPER).
 BLOCK_ROWS = 8192
 
 
+def count_launch(name: str, variant: Optional[str] = None) -> None:
+    """Count one launch of kernel ``name`` (and of ``name[variant]``)."""
+    with _launch_lock:
+        LAUNCHES[name] += 1
+        if variant is not None:
+            key = f"{name}[{variant}]"
+            TEMPLATE_LAUNCHES[key] = TEMPLATE_LAUNCHES.get(key, 0) + 1
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _launch_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        TEMPLATE_LAUNCHES.clear()
 
 
 _OPS = {"<": 0, "<=": 1, ">": 2, ">=": 3, "==": 4, "!=": 5}
@@ -342,11 +358,12 @@ def block_compact_plain(sel, capb):
 
 def _launch_sum_count(
     name, mode, n_cl, codes, values, planes, base8, ops, lits, num_codes,
-    num_digits,
+    num_digits, variant=None,
 ):
     """Launch the sum/count kernel into pre-filled outputs and count the
-    launch under ``name``. With no rows there is nothing to launch: the
-    pre-filled outputs are the result and nothing is counted."""
+    launch under ``name`` (and ``variant``). With no rows there is nothing
+    to launch: the pre-filled outputs are the result and nothing is
+    counted."""
     n = codes.numel()
     dev = codes.device
     sums = torch.zeros(num_codes, dtype=torch.int64, device=dev)
@@ -381,7 +398,7 @@ def _launch_sum_count(
         )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cuda error {err}")
-    LAUNCHES[name] += 1
+    count_launch(name, variant)
     return sums, counts, first
 
 
@@ -410,7 +427,7 @@ def _launch_min_max(codes, values, sel, num_codes):
         )
     if err != 0:
         raise RuntimeError(f"group_min_max kernel launch failed: cuda error {err}")
-    LAUNCHES["group_min_max"] += 1
+    count_launch("group_min_max")
     return mins, maxs
 
 
@@ -465,7 +482,7 @@ def fused_band_group_sum_count(
     return _launch_sum_count(
         "fused_band_group_sum_count", _MODE_BAND, len(planes), codes, values,
         list(planes), None, [_OPS[o] for o in cmp_ops], lits, num_codes,
-        num_digits,
+        num_digits, variant=str(len(planes)),
     )
 
 
@@ -492,7 +509,7 @@ def fused_cmp_group_sum_count(
         )
     return _launch_sum_count(
         "fused_cmp_group_sum_count", _MODE_CMP8, 1, codes, values, [ts],
-        base8, [_OPS[cmp_op]], [lit], num_codes, num_digits,
+        base8, [_OPS[cmp_op]], [lit], num_codes, num_digits, variant=cmp_op,
     )
 
 
@@ -545,7 +562,7 @@ def filter_group_sum_count(
         raise RuntimeError(
             f"filter_group_sum_count kernel launch failed: cuda error {err}"
         )
-    LAUNCHES["filter_group_sum_count"] += 1
+    count_launch("filter_group_sum_count")
     return sums, counts
 
 
@@ -576,5 +593,5 @@ def block_compact(sel, capb: int):
         )
     if err != 0:
         raise RuntimeError(f"block_compact kernel launch failed: cuda error {err}")
-    LAUNCHES["block_compact"] += 1
+    count_launch("block_compact")
     return bc, idx

@@ -269,6 +269,10 @@ def ident_like(v):
     return _dtype_max(v.dtype)
 
 
+_I64_MIN = -(2**63)  # the sign bit of a float64's bits
+_I64_MAX = 2**63 - 1
+
+
 def _nan_sign_like_reference(sums, v_s, sel_sorted, seg, n: int):
     """Give NaN float sums the sign the reference's sequential segment sum
     gives them: each step computes ``v + acc``, so a NaN input replaces the
@@ -280,8 +284,10 @@ def _nan_sign_like_reference(sums, v_s, sel_sorted, seg, n: int):
     last = _segment(torch.where(nan_in, pos, -1), seg, n, "amax")
     last_neg = torch.signbit(v_s[torch.clamp(last, min=0)])
     neg = torch.where(last >= 0, last_neg, True)
-    nan = torch.full_like(sums, float("nan"))
-    signed = torch.where(neg, -nan.abs(), nan.abs())
+    # The sign goes on the NaN's bits: a GPU's float arithmetic, negation
+    # included, returns its one canonical NaN, which is positive.
+    nan = torch.full_like(sums, float("nan")).view(torch.int64) & _I64_MAX
+    signed = torch.where(neg, nan | _I64_MIN, nan).view(sums.dtype)
     return torch.where(torch.isnan(sums), signed, sums)
 
 

@@ -1,11 +1,12 @@
-"""chip_smoke.py's phase 9 ("the rest of the package on the card")
-rehearsed on the CPU at a cut size: each part runs its checks on a
-``device="cpu"`` store, so the phase's own logic (tools/verify's cases,
-the fan-out against a serial scan, concurrent writers under compiled
-readers, the traced queries, the pruning counts from the table's part
-layout, struct rotation and recovery, the read path's A/B) is exercised
-here. The kernel-launch
-checks apply to CUDA tables only; the card run holds them.
+"""chip_smoke.py's phases 9 ("the rest of the package on the card") and
+10 (the reference's differential fuzz) rehearsed on the CPU at a cut
+size: each part runs its checks on a ``device="cpu"`` store, so the
+phases' own logic (tools/verify's cases, the fan-out against a serial
+scan, concurrent writers under compiled readers, the traced queries, the
+pruning counts from the table's part layout, struct rotation and recovery,
+the read path's A/B, the fuzz at two rows scales) is exercised here. The
+kernel-launch and tier-coverage checks apply to CUDA tables only; the card
+run holds them.
 """
 
 import pytest
@@ -71,3 +72,18 @@ def test_read_path_cost(cut, capsys, monkeypatch):
     CS.build_table(db, "t", 2)
     CS.read_path_cost(db)
     assert printed(capsys).count("rounds faster as is") == 5
+
+
+def test_fuzz_phase(cut, capsys, monkeypatch):
+    """Phase 10 at a cut size: the fuzz at rows scale 1 against a CPU copy
+    (here the CPU against itself) and at a small scale; the NaN-sign check;
+    on the CPU nothing counts as a launch."""
+    monkeypatch.setattr(CS, "FUZZ_EXTRA_SEEDS", 2)
+    monkeypatch.setattr(CS, "FUZZ_SCALE", 3)
+    launches = CS.fuzz_phase(AK, "cpu")
+    log = printed(capsys)
+    assert "fuzz x1 aggregates: 66 queries" in log
+    assert "fuzz x1 directed shapes: 11 queries" in log
+    assert "fuzz x3 aggregates: 36 queries" in log and "fuzz x3 directed" not in log
+    assert "0 out-of-gate float sums" in log
+    assert not any(launches.values())

@@ -459,6 +459,36 @@ def test_empty_input_launches_and_counts_nothing(monkeypatch, kernel):
     assert all(n == 0 for n in AK.LAUNCHES.values())
 
 
+def test_launch_counts_are_exact_under_threads():
+    """Queries on several threads launch at once: 8 threads counting
+    10,000 launches each (with the interpreter switching threads as often
+    as it can) leave exact totals, by kernel and by variant."""
+    import sys
+    import threading
+
+    AK.reset_launches()
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [
+            threading.Thread(
+                target=lambda: [AK.count_launch("group_sum_count", "2") for _ in range(10_000)]
+            )
+            for _ in range(8)
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(switch)
+    assert AK.LAUNCHES["group_sum_count"] == 80_000
+    assert AK.TEMPLATE_LAUNCHES == {"group_sum_count[2]": 80_000}
+    AK.reset_launches()
+    assert not any(AK.LAUNCHES.values()) and AK.TEMPLATE_LAUNCHES == {}
+
+
 @pytest.mark.parametrize(
     "case",
     ["dtype", "shape", "codes", "digits", "contiguous", "literal", "op"],
