@@ -1236,57 +1236,56 @@ def scan_distinct_phase(AK, db, engine, generic, data, total):
     return launches, captured
 
 
-def scan_host_breakdown(engine, E, timed) -> None:
-    """Per timed scan shape, where a query's wall time goes (host clock,
-    median of QUERY_REPS queries): the device program (selection plane,
-    compaction and the blob's copy, which waits for the device), the
-    host's per-block loop that turns the blob into row positions, the
-    per-part ``take`` and projection, and the rest (planning, part
-    collection, tier dispatch)."""
-    from frostdb_tpu_torch.compiled_scan import CompiledScan
+def traced_scans(engine, make_q, n: int) -> list:
+    """``n`` runs of a query under a tracer: per run, its spans by name
+    (the root under ``query``)."""
+    from frostdb_tpu_torch.tracing import Tracer
 
-    spans = ("_run_scan_program", "_selected_rows", "_materialize")
-    saved = {name: getattr(CompiledScan, name) for name in spans}
+    saved, engine.exec_options.tracer = engine.exec_options.tracer, Tracer()
+    try:
+        for _ in range(n):
+            run_shape(engine, make_q)
+        roots = engine.exec_options.tracer.roots
+    finally:
+        engine.exec_options.tracer = saved
+    runs = []
+    for root in roots:
+        by_name, todo = {"query": [root]}, list(root.children)
+        while todo:
+            span = todo.pop()
+            by_name.setdefault(span.name, []).append(span)
+            todo.extend(span.children)
+        runs.append(by_name)
+    return runs
+
+
+def scan_host_breakdown(engine, E, timed) -> None:
+    """Per timed scan shape, where a query's wall time goes (its spans,
+    median of QUERY_REPS queries): the result's copy (which waits for the
+    device program), the rest of ``scan/blocks`` (the program's launches
+    and the host's per-block loop that turns the blob into row positions),
+    ``result/epilogue`` (the per-part ``take`` and projection), and the
+    rest (planning, part collection, tier dispatch)."""
     for shape, make_q, _tier, _k in scan_shapes(E, 0):
         if not shape.startswith("scan") or shape not in timed:
             continue
-        took: dict = {name: [] for name in spans}
-        took["query"] = []
-
-        def timer(name, fn):
-            def call(self, *a, **k):
-                t = time.perf_counter()
-                try:
-                    return fn(self, *a, **k)
-                finally:
-                    took[name].append((time.perf_counter() - t) * 1e3)
-
-            return call
-
-        for name, fn in saved.items():
-            setattr(CompiledScan, name, timer(name, fn))
-        try:
-            for _ in range(QUERY_REPS):
-                t = time.perf_counter()
-                run_shape(engine, make_q)
-                took["query"].append((time.perf_counter() - t) * 1e3)
-        finally:
-            for name, fn in saved.items():
-                setattr(CompiledScan, name, fn)
-        med = {k: statistics.median(v) for k, v in took.items()}
+        runs = traced_scans(engine, make_q, QUERY_REPS)
+        med = {k: statistics.median(sum(s.duration for s in r.get(k, ())) * 1e3 for r in runs)
+               for k in ("query", "result/copy", "scan/blocks", "result/epilogue")}
         log(
             f"engine {shape} host breakdown (median ms): query {med['query']:.3f} = "
-            f"device program and copy {med['_run_scan_program']:.3f} + per-block "
-            f"loop {med['_selected_rows'] - med['_run_scan_program']:.3f} + take and "
-            f"project {med['_materialize']:.3f} + rest "
-            f"{med['query'] - med['_selected_rows'] - med['_materialize']:.3f}"
+            f"device program and copy {med['result/copy']:.3f} + launches and per-block "
+            f"loop {med['scan/blocks'] - med['result/copy']:.3f} + take and "
+            f"project {med['result/epilogue']:.3f} + rest "
+            f"{med['query'] - med['scan/blocks'] - med['result/epilogue']:.3f}"
         )
 
 
 def scan_layout(engine, E, total) -> dict:
-    """Per scan shape, what its compaction saw: the capacity it settled on,
-    and blocks with a selected row, full, and past the capacity. Returns
-    {shape: blocks re-filtered on the host}."""
+    """Per scan shape, what its compaction saw (``scan/blocks``' attributes
+    and the rows ``result/epilogue`` emitted): blocks with a selected row,
+    blocks past the capacity, the capacity it settled on and the dispatches
+    it took. Returns {shape: blocks re-filtered on the host}."""
     import frostdb_tpu_torch.compiled_scan as CS
     from frostdb_tpu_torch.ops import agg_kernels as AK
 
@@ -1294,29 +1293,17 @@ def scan_layout(engine, E, total) -> dict:
     for name, make_q, _tier, _k in scan_shapes(E, 0):
         if not name.startswith("scan"):
             continue
-        seen = []
-        orig = AK.block_compact
-
-        def rec(sel, capb):
-            out = orig(sel, capb)
-            seen.append((out[0].cpu().numpy(), capb))
-            return out
-
-        AK.block_compact = rec
-        try:
-            run_shape(engine, make_q)
-        finally:
-            AK.block_compact = orig
-        bc, capb = seen[-1]
-        refiltered = int(((bc > capb) & (bc < AK.BLOCK_ROWS)).sum())
+        (spans,) = traced_scans(engine, make_q, 1)
+        a = spans["scan/blocks"][0].attributes
+        rows = spans["result/epilogue"][0].attributes["rows"]
         log(
-            f"{name}: {len(bc)} blocks of {AK.BLOCK_ROWS} rows over {total} live rows, "
-            f"{int((bc > 0).sum())} with a selected row, {int((bc == AK.BLOCK_ROWS).sum())} full, "
-            f"{refiltered} past the capacity and re-filtered on the host "
-            f"(capb {capb}; a block past {CS._CAPB_MAX} stops the escalation); "
-            f"{int(bc.sum())} selected, at most {int(bc.max())} in a block"
+            f"{name}: blocks of {AK.BLOCK_ROWS} rows over {total} live rows, "
+            f"{a['blocks']} with a selected row, {a['refiltered']} past "
+            f"the capacity and re-filtered on the host (capb {a['capb']}; a block past "
+            f"{CS._CAPB_MAX} stops the escalation); {a['dispatches']} dispatches; "
+            f"{rows} rows emitted"
         )
-        overflow[name] = refiltered
+        overflow[name] = a["refiltered"]
     return overflow
 
 
@@ -2724,7 +2711,18 @@ def trace_queries(E):
 
 
 def span_names(span):
-    return (span.name, [span_names(c) for c in span.children])
+    """(name, children) as the JAX package emits them: the spans only the
+    port emits dropped with their children lifted, tier spans renamed."""
+    from frostdb_tpu_torch.tracing import PORT_ONLY_SPANS, REFERENCE_TIER_SPAN
+
+    def kept(s):
+        children = [t for c in s.children for t in kept(c)]
+        if s.name in PORT_ONLY_SPANS:
+            return children
+        return [(REFERENCE_TIER_SPAN.get(s.name, s.name), children)]
+
+    (tree,) = kept(span)
+    return tree
 
 
 def trace_table(db):

@@ -69,6 +69,7 @@ import torch
 from .columnbatch import Column, ColumnBatch, KIND_DICT, KIND_INT64
 from .query import expr as E
 from .query.physeval import missing_column_all_true
+from .tracing import annotate, count, span as _span
 
 _INT32_MIN = -(2**31)
 _INT32_MAX = 2**31 - 1
@@ -275,6 +276,8 @@ class CompiledFilterAggregate:
     # Group-key columns per query; the combined code space is gated by
     # MAX_CODES regardless.
     MAX_GROUP_COLS = 4
+    # The span each query's execution opens: the serving tier's name.
+    SPAN = "compiled/execute"
 
     def __init__(
         self,
@@ -815,46 +818,49 @@ class CompiledFilterAggregate:
         code-presence sets. int64/window columns get range-dense plans
         (_int_group_plan). Raises NotCompilable when the combined count
         exceeds MAX_CODES."""
-        cols: list[_GroupCol] = []
-        n_dict = sum(1 for g in self._gplan if g.kind == "dict")
-        for gcol in self._gplan:
-            gc, d = gcol.name, gcol.dictionary
-            if gcol.kind == "bool":
+        with _span("groups/remap") as span:
+            cols: list[_GroupCol] = []
+            n_dict = sum(1 for g in self._gplan if g.kind == "dict")
+            for gcol in self._gplan:
+                gc, d = gcol.name, gcol.dictionary
+                if gcol.kind == "bool":
+                    cols.append(
+                        _GroupCol(gc, None, kind="bool", k=2, leaf=gcol.leaf)
+                    )
+                    continue
+                if gcol.kind == "int":
+                    cols.append(self._int_group_plan(parts, gcol))
+                    continue
+                if (
+                    len(self.group_cols) == 1
+                    and n_dict == 1
+                    and len(d) <= self.REMAP_THRESHOLD
+                ):
+                    cols.append(_GroupCol(gc, d, k=max(len(d), 1)))
+                    continue
+                pres = self._col_presence(parts, gc)
+                remap = np.zeros(max(len(d), 1), dtype=np.int32)
+                remap[pres] = np.arange(len(pres), dtype=np.int32)
                 cols.append(
-                    _GroupCol(gc, None, kind="bool", k=2, leaf=gcol.leaf)
+                    _GroupCol(
+                        gc,
+                        d,
+                        remap=remap,
+                        inv=pres.astype(np.int64),
+                        k=max(len(pres), 1),
+                    )
                 )
-                continue
-            if gcol.kind == "int":
-                cols.append(self._int_group_plan(parts, gcol))
-                continue
-            if (
-                len(self.group_cols) == 1
-                and n_dict == 1
-                and len(d) <= self.REMAP_THRESHOLD
-            ):
-                cols.append(_GroupCol(gc, d, k=max(len(d), 1)))
-                continue
-            pres = self._col_presence(parts, gc)
-            remap = np.zeros(max(len(d), 1), dtype=np.int32)
-            remap[pres] = np.arange(len(pres), dtype=np.int32)
-            cols.append(
-                _GroupCol(
-                    gc,
-                    d,
-                    remap=remap,
-                    inv=pres.astype(np.int64),
-                    k=max(len(pres), 1),
+            num_codes = 1
+            for c in cols:
+                num_codes *= c.k
+            if span is not None:
+                span.attributes["codes"] = num_codes
+            limit = self.MAX_CODES if max_codes is None else max_codes
+            if num_codes > limit:
+                raise NotCompilable(
+                    f"group code space {num_codes} > {limit}"
                 )
-            )
-        num_codes = 1
-        for c in cols:
-            num_codes *= c.k
-        limit = self.MAX_CODES if max_codes is None else max_codes
-        if num_codes > limit:
-            raise NotCompilable(
-                f"group code space {num_codes} > {limit}"
-            )
-        return cols, num_codes
+            return cols, num_codes
 
     def _remap_dev(self, gcol: _GroupCol):
         """Device-resident remap LUT, cached per (dictionary, presence)
@@ -867,13 +873,40 @@ class CompiledFilterAggregate:
         hit = cache.get(gcol.name)
         if hit is not None and hit[0] == key:
             return hit[1]
-        dev = self._put(gcol.remap)
+        dev = self._built("remap", lambda: self._put(gcol.remap))
         cache[gcol.name] = (key, dev)
         return dev
 
     def _put(self, arr: np.ndarray):
         """A host constant (LUT) as a tensor on the table's device."""
         return torch.as_tensor(np.ascontiguousarray(arr), device=self.device)
+
+    @staticmethod
+    def _built(kind: str, build):
+        """``build()``, a superpart, plane or device LUT made on a cache
+        miss, under a ``planes/build`` span with the device bytes it
+        allocated."""
+        with _span("planes/build", kind=kind) as span:
+            out = build()
+            if span is not None:
+                span.attributes["bytes"] = _nbytes(out)
+        count("planes_built_total", "superparts, planes and device LUTs built on a cache miss")
+        return out
+
+    def _sp_cached(self, sp, key: tuple, build):
+        """The superpart's plane ``key`` (its kind first), built on a miss."""
+        out = sp["planes"].get(key)
+        if out is None:
+            out = sp["planes"][key] = self._built(key[0], build)
+        return out
+
+    def _serving_parts(self) -> list:
+        """The visible parts this query reads, its execute span given how
+        many and how many ``_filter_parts`` pruned."""
+        visible = self._visible_parts()
+        parts = self._filter_parts(visible)
+        annotate(parts=len(parts), parts_pruned=len(visible) - len(parts))
+        return parts
 
     def _filter_parts(self, parts) -> list:
         """Drop parts that provably contain no selected rows before any
@@ -971,14 +1004,17 @@ class CompiledFilterAggregate:
             if hit is None or hit[0] is not leaf.lit:
                 hit = cache[(idx, "in_lut")] = (
                     leaf.lit,
-                    self._put(self._leaf_lut_np(idx).astype(np.int32)),
+                    self._built(
+                        "lut", lambda: self._put(self._leaf_lut_np(idx).astype(np.int32))
+                    ),
                 )
             return hit[1]
         key = (idx, len(leaf.dictionary))
         lut = cache.get(key)
         if lut is None:
-            lut = self._put(self._leaf_lut_np(idx).astype(np.int32))
-            cache[key] = lut
+            lut = cache[key] = self._built(
+                "lut", lambda: self._put(self._leaf_lut_np(idx).astype(np.int32))
+            )
         return lut
 
     # ------------------------------------------------------------------
@@ -1015,13 +1051,17 @@ class CompiledFilterAggregate:
                 cache = self.table._superpart_cache = {}
             sp = cache.get(key)
         if sp is None:
-            row_offsets = np.zeros(len(parts) + 1, dtype=np.int64)
-            np.cumsum([p.device().n_pad for p in parts], out=row_offsets[1:])
-            new = {
-                "parts": list(parts),  # pin ids
-                "planes": {},
-                "row_offsets": row_offsets,
-            }
+
+            def build():
+                row_offsets = np.zeros(len(parts) + 1, dtype=np.int64)
+                np.cumsum([p.device().n_pad for p in parts], out=row_offsets[1:])
+                return {
+                    "parts": list(parts),  # pin ids
+                    "planes": {},
+                    "row_offsets": row_offsets,
+                }
+
+            new = self._built("superpart", build)
             with self._SUPERPART_LOCK:
                 sp = cache.get(key)
                 if sp is None:
@@ -1035,76 +1075,72 @@ class CompiledFilterAggregate:
         contributes its padded ``n_pad`` rows). Kinds: rowvalid | codes |
         valid | int64 (column required) and codes_m | valid_m | int64_m |
         has (missing column tolerated: zero planes + has=0)."""
-        k = (kind, name)
-        out = sp["planes"].get(k)
-        if out is not None:
-            return out
-        arrs = []
-        for p in sp["parts"]:
-            dev = p.device()
-            if kind == "rowvalid":
-                arrs.append(dev.row_valid_mask().to(torch.int32))
-                continue
-            c = dev.column(name)
-            if c is None:
-                if kind == "has" or kind.endswith("_m"):
-                    dtype = torch.int64 if kind.startswith("int64") else torch.int32
-                    arrs.append(
-                        torch.zeros(dev.n_pad, dtype=dtype, device=dev.device)
-                    )
+
+        def build():
+            arrs = []
+            for p in sp["parts"]:
+                dev = p.device()
+                if kind == "rowvalid":
+                    arrs.append(dev.row_valid_mask().to(torch.int32))
                     continue
-                raise NotCompilable(f"part lacks {name}")
-            if kind == "has":
-                arrs.append(
-                    torch.ones(dev.n_pad, dtype=torch.int32, device=dev.device)
-                )
-            elif kind.startswith("codes"):
-                arrs.append(c.data.to(torch.int32))
-            elif kind.startswith("valid"):
-                arrs.append(c.validity.to(torch.int32))
-            else:  # int64 planes
-                arrs.append(c.data.to(torch.int64))
-        out = torch.cat(arrs)
-        sp["planes"][k] = out
-        return out
+                c = dev.column(name)
+                if c is None:
+                    if kind == "has" or kind.endswith("_m"):
+                        dtype = torch.int64 if kind.startswith("int64") else torch.int32
+                        arrs.append(
+                            torch.zeros(dev.n_pad, dtype=dtype, device=dev.device)
+                        )
+                        continue
+                    raise NotCompilable(f"part lacks {name}")
+                if kind == "has":
+                    arrs.append(
+                        torch.ones(dev.n_pad, dtype=torch.int32, device=dev.device)
+                    )
+                elif kind.startswith("codes"):
+                    arrs.append(c.data.to(torch.int32))
+                elif kind.startswith("valid"):
+                    arrs.append(c.validity.to(torch.int32))
+                else:  # int64 planes
+                    arrs.append(c.data.to(torch.int64))
+            return torch.cat(arrs)
+
+        return self._sp_cached(sp, (kind, name), build)
 
     def _sp_basesel(self, sp, gplan):
         """Cached base selection plane: row-validity AND every group
         column's validity, folded ONCE per (part set, group col set) —
         per-query programs then read one plane instead of 1 + n_group."""
-        k = ("basesel", tuple(g.name for g in gplan if g.kind != "bool"))
-        out = sp["planes"].get(k)
-        if out is None:
+
+        def build():
             out = self._sp_plane(sp, "rowvalid", None)
             for gcol in gplan:
                 if gcol.kind == "bool":
                     continue  # bool keys are dense true/false, never null
                 out = out * self._sp_plane(sp, "valid", gcol.name)
-            sp["planes"][k] = out
-        return out
+            return out
+
+        k = ("basesel", tuple(g.name for g in gplan if g.kind != "bool"))
+        return self._sp_cached(sp, k, build)
 
     def _sp_value_i32(self, sp, column: str, bias: int):
         """Cached pre-shifted int32 value plane for non-wide columns: the
         bias subtract + narrowing cast run once per (part set, bias), not
         per query — halving the kernel pass's value-read bytes."""
-        k = ("vi32", column, int(bias))
-        out = sp["planes"].get(k)
-        if out is None:
-            v64 = self._sp_plane(sp, "int64", column)
-            out = (v64 - int(bias)).to(torch.int32)
-            sp["planes"][k] = out
-        return out
+        return self._sp_cached(
+            sp,
+            ("vi32", column, int(bias)),
+            lambda: (self._sp_plane(sp, "int64", column) - int(bias)).to(torch.int32),
+        )
 
     def _sp_i32_m(self, sp, column: str):
         """Cached int32 copy of a filter column whose part-set range fits
         int32 (missing parts zero-filled): comparing in int32 halves both
         read bytes and op count."""
-        k = ("i32m", column)
-        out = sp["planes"].get(k)
-        if out is None:
-            out = self._sp_plane(sp, "int64_m", column).to(torch.int32)
-            sp["planes"][k] = out
-        return out
+        return self._sp_cached(
+            sp,
+            ("i32m", column),
+            lambda: self._sp_plane(sp, "int64_m", column).to(torch.int32),
+        )
 
     def _sp_fplanes(self, sp, column: str, fplan):
         """Cached float-sum digit planes over the superpart: decompose_np
@@ -1113,9 +1149,7 @@ class CompiledFilterAggregate:
         -top_min so the digit kernel sees non-negative values."""
         from .floatsum import decompose_np
 
-        key = ("fpl", column, fplan.scale, fplan.top_min)
-        out = sp["planes"].get(key)
-        if out is None:
+        def build():
             per_plane = [[] for _ in range(4)]
             for p in sp["parts"]:
                 dev = p.device()
@@ -1128,9 +1162,9 @@ class CompiledFilterAggregate:
                     full = np.zeros(dev.n_pad, dtype=np.int32)
                     full[: p.batch.num_rows] = planes[pi].astype(np.int32)
                     per_plane[pi].append(self._put(full))
-            out = [torch.cat(arrs) for arrs in per_plane]
-            sp["planes"][key] = out
-        return out
+            return [torch.cat(arrs) for arrs in per_plane]
+
+        return self._sp_cached(sp, ("fpl", column, fplan.scale, fplan.top_min), build)
 
     def _sp_int_range(self, sp, column: str):
         """Part-set (min, max) over a column's raw ranges, cached on the
@@ -1255,56 +1289,55 @@ class CompiledFilterAggregate:
         with every invalid row (padding, null group key, null filter slot)
         replaced by a predicate-unsatisfiable sentinel — cached once per
         (part set, group cols, column, side)."""
+
+        def build():
+            base = self._sp_basesel(sp, gplan) * self._sp_plane(
+                sp, "valid", leafcol
+            )
+            vals = self._sp_i32_m(sp, leafcol)
+            return torch.where(base == 1, vals, sentinel).to(torch.int32)
+
         k = (
             "cmpmask",
             tuple(g.name for g in gplan if g.kind != "bool"),
             leafcol,
             int(sentinel),
         )
-        out = sp["planes"].get(k)
-        if out is None:
-            base = self._sp_basesel(sp, gplan) * self._sp_plane(
-                sp, "valid", leafcol
-            )
-            vals = self._sp_i32_m(sp, leafcol)
-            out = torch.where(base == 1, vals, sentinel).to(torch.int32)
-            sp["planes"][k] = out
-        return out
+        return self._sp_cached(sp, k, build)
 
     def _sp_cmpmask_dict(self, sp, gplan, leafcol: str):
         """Sentinel-masked i32 CODES plane for dict-equality band clauses
         (invalid rows hold INT32_MIN, which no code or literal equals)."""
+
+        def build():
+            base = self._sp_basesel(sp, gplan) * self._sp_plane(
+                sp, "valid", leafcol
+            )
+            vals = self._sp_plane(sp, "codes_m", leafcol)
+            return torch.where(base == 1, vals, _INT32_MIN).to(torch.int32)
+
         k = (
             "cmpmaskd",
             tuple(g.name for g in gplan if g.kind != "bool"),
             leafcol,
         )
-        out = sp["planes"].get(k)
-        if out is None:
-            base = self._sp_basesel(sp, gplan) * self._sp_plane(
-                sp, "valid", leafcol
-            )
-            vals = self._sp_plane(sp, "codes_m", leafcol)
-            out = torch.where(base == 1, vals, _INT32_MIN).to(torch.int32)
-            sp["planes"][k] = out
-        return out
+        return self._sp_cached(sp, k, build)
 
     def _sp_basesel8(self, sp, gplan, leafcol: str):
         """int8 base-validity plane: row validity x group validity x the
         filter column's validity, folded once per (part set, cols) — the
         fused-compare kernel's 1B/row mask input."""
+
+        def build():
+            base = self._sp_basesel(sp, gplan)
+            return (base * self._sp_plane(sp, "valid", leafcol)).to(torch.int8)
+
         k = (
             "basesel8",
             tuple(g.name for g in gplan if g.kind != "bool"),
             leafcol,
         )
-        out = sp["planes"].get(k)
-        if out is None:
-            base = self._sp_basesel(sp, gplan)
-            base = base * self._sp_plane(sp, "valid", leafcol)
-            out = base.to(torch.int8)
-            sp["planes"][k] = out
-        return out
+        return self._sp_cached(sp, k, build)
 
     def _fused_structure(self, sp, plans, num_codes) -> tuple:
         g = tuple(
@@ -1392,20 +1425,22 @@ class CompiledFilterAggregate:
         if lut is None:
             import re
 
-            try:
-                lut_np = _dict_match_lut(
-                    leaf.dictionary, leaf.op, leaf.lit, None
-                )
-            except re.error:
-                raise NotCompilable("invalid regex literal (generic path)")
-            if lut_np is None:
-                raise NotCompilable(f"op {leaf.op} has no dict LUT")
-            if len(lut_np) == 0:
-                lut_np = np.asarray(
-                    [leaf.op == E.OP_NOT_EQ], dtype=np.bool_
-                )
-            lut = self._put(lut_np.astype(np.int32))
-            cache[key] = lut
+            def build():
+                try:
+                    lut_np = _dict_match_lut(
+                        leaf.dictionary, leaf.op, leaf.lit, None
+                    )
+                except re.error:
+                    raise NotCompilable("invalid regex literal (generic path)")
+                if lut_np is None:
+                    raise NotCompilable(f"op {leaf.op} has no dict LUT")
+                if len(lut_np) == 0:
+                    lut_np = np.asarray(
+                        [leaf.op == E.OP_NOT_EQ], dtype=np.bool_
+                    )
+                return self._put(lut_np.astype(np.int32))
+
+            lut = cache[key] = self._built("lut", build)
         return lut
 
     def _fused_args(self, sp, plans) -> list:
@@ -1503,9 +1538,12 @@ class CompiledFilterAggregate:
         structure = self._fused_structure(sp, plans, num_codes)
         prog = _FUSED_CACHE.get(structure)
         if prog is None:
-            prog = _FUSED_CACHE[structure] = _build_fused_program(structure)
-        # The single device-to-host copy of the query.
-        return prog(*self._fused_args(sp, plans)).cpu().numpy()
+            with _span("program/build") as span:
+                if span is not None:
+                    span.attributes["structure"] = _structure_text(structure)
+                prog = _FUSED_CACHE[structure] = _build_fused_program(structure)
+            count("programs_built_total", "fused programs built on a cache miss")
+        return _copy_to_host(prog(*self._fused_args(sp, plans)))
 
     # ------------------------------------------------------------------
 
@@ -1530,11 +1568,7 @@ class CompiledFilterAggregate:
     # ------------------------------------------------------------------
 
     def execute(self) -> ColumnBatch:
-        from .tracing import span as _span
-
-        with _span(
-            "compiled/execute", table=self.table.name, group=self.group_col
-        ):
+        with _span(self.SPAN, table=self.table.name, group=self.group_col):
             return self._execute()
 
     def _visible_parts(self) -> list:
@@ -1560,7 +1594,7 @@ class CompiledFilterAggregate:
         return parts
 
     def _execute(self) -> ColumnBatch:
-        parts = self._filter_parts(self._visible_parts())
+        parts = self._serving_parts()
         self._check_parts(parts)
         self._gplan, num_codes = self._group_remap(parts)
         plans = list(self.value_plans.values())
@@ -1583,12 +1617,22 @@ class CompiledFilterAggregate:
             # MemoryLimitExceeded through to the caller — NOT NotCompilable
             self.allocator.allocate(int(blob.nbytes))
         try:
-            return self._epilogue(sp, blob, plans, num_codes)
+            return self._run_epilogue(self._epilogue, sp, blob, plans, num_codes)
         finally:
             # free even when the epilogue raises — a leaked reservation
             # would fail every later memory-limited query
             if self.allocator is not None:
                 self.allocator.free(int(blob.nbytes))
+
+    @staticmethod
+    def _run_epilogue(epilogue, *args) -> ColumnBatch:
+        """``epilogue(*args)``, the host's turn of the result blob into the
+        output batch, under a ``result/epilogue`` span."""
+        with _span("result/epilogue") as span:
+            out = epilogue(*args)
+            if span is not None:
+                span.attributes["rows"] = out.num_rows
+        return out
 
     def _epilogue(self, sp, blob, plans, num_codes):
         off = 0
@@ -1718,6 +1762,35 @@ class CompiledFilterAggregate:
 # (structure) -> whole-query program; see _fused_blob. Structure keys are
 # small tuples.
 _FUSED_CACHE: dict = {}
+
+
+def _nbytes(out) -> int:
+    """Device bytes of a built plane, list of planes or LUT (0 for a
+    superpart, which holds no plane of its own when built)."""
+    if isinstance(out, torch.Tensor):
+        return out.numel() * out.element_size()
+    if isinstance(out, list):
+        return sum(_nbytes(t) for t in out)
+    return 0
+
+
+def _structure_text(structure) -> str:
+    """A fused program's structure in short: group plans, clause count,
+    value plans, code count and the in-kernel compare."""
+    g, clauses, vp, num_codes, fastcmp = structure
+    return (
+        f"groups {[x[0] for x in g]}, {len(clauses)} clauses, {len(vp)} value plans, "
+        f"K {num_codes}, cmp {fastcmp}"
+    )
+
+
+def _copy_to_host(t: torch.Tensor) -> np.ndarray:
+    """The query's one device-to-host copy, under a ``result/copy`` span."""
+    with _span("result/copy") as span:
+        out = t.cpu().numpy()
+        if span is not None:
+            span.attributes["bytes"] = out.nbytes
+    return out
 
 
 def _blob_rows(plans, with_first: bool = True) -> int:

@@ -32,6 +32,7 @@ class CompiledDistinct(CompiledFilterAggregate):
 
     # (the base class allows 4 group columns; kept explicit here)
     MAX_GROUP_COLS = 4
+    SPAN = "compiled_distinct/execute"
 
 
 def match_plan_distinct(plan, exec_options=None) -> CompiledDistinct:

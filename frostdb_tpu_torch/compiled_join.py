@@ -89,6 +89,8 @@ class CompiledJoinAggregate(CompiledFilterAggregate):
     ("cnt", None) | ("rsum", col) | ("rmin", col) | ("rmax", col) |
     ("mul", col)."""
 
+    SPAN = "compiled_join/execute"
+
     def __init__(
         self,
         spec,

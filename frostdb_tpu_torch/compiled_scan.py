@@ -31,8 +31,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .compiled import CompiledFilterAggregate, NotCompilable, _leaf_mask
+from .compiled import CompiledFilterAggregate, NotCompilable, _copy_to_host, _leaf_mask
 from .query import expr as E
+from .tracing import annotate, count, span as _span
 
 # Per-block compaction capacity: starts small (low-selectivity serving),
 # escalates by powers of two; past _CAPB_MAX the host evaluates just the
@@ -58,7 +59,7 @@ def _scan_blob(structure, capb: int, xs) -> np.ndarray:
         sel = sel * cmask
     bc, idx = AK.block_compact(sel.to(torch.int32).contiguous(), capb)
     # The single device-to-host copy of the dispatch.
-    return torch.cat([bc, idx.reshape(-1)]).cpu().numpy()
+    return _copy_to_host(torch.cat([bc, idx.reshape(-1)]))
 
 
 class CompiledScan(CompiledFilterAggregate):
@@ -66,6 +67,8 @@ class CompiledScan(CompiledFilterAggregate):
     aggregate path's leaf validation, CNF clause layout, part pruning,
     dictionary LUTs, and superpart plane caches; only the program and the
     host materialization differ."""
+
+    SPAN = "compiled_scan/execute"
 
     def __init__(
         self,
@@ -143,6 +146,7 @@ class CompiledScan(CompiledFilterAggregate):
         ckey = self._scan_structure(sp)
         capb = min(max(cache.get(ckey, _CAPB0), _CAPB0), _CAPB_MAX)
         blob = self._run_scan_program(sp, capb)
+        dispatches = 1
         bc = blob[:n_blocks]
         idx2d = blob[n_blocks:].reshape(n_blocks, capb)
         partial = (bc > capb) & (bc < RB)
@@ -151,11 +155,14 @@ class CompiledScan(CompiledFilterAggregate):
             if mx <= _CAPB_MAX:
                 capb = 1 << (mx - 1).bit_length()
                 blob = self._run_scan_program(sp, capb)
+                dispatches = 2
                 bc = blob[:n_blocks]
                 idx2d = blob[n_blocks:].reshape(n_blocks, capb)
         cache[ckey] = capb
         pieces: list[np.ndarray] = []
-        for b in np.nonzero(bc > 0)[0]:
+        blocks = np.nonzero(bc > 0)[0]
+        refiltered = 0
+        for b in blocks:
             base = int(b) * RB
             n_sel = int(bc[b])
             if n_sel == RB:
@@ -164,6 +171,14 @@ class CompiledScan(CompiledFilterAggregate):
                 pieces.append(idx2d[b, :n_sel].astype(np.int64) + base)
             else:
                 pieces.extend(self._refilter_block(parts, offsets, base))
+                refiltered += 1
+        if refiltered:
+            count(
+                "scan_blocks_refiltered_total",
+                "compiled_scan blocks re-filtered on the host",
+                refiltered,
+            )
+        annotate(blocks=len(blocks), refiltered=refiltered, capb=capb, dispatches=dispatches)
         if not pieces:
             return np.zeros(0, dtype=np.int64)
         return np.concatenate(pieces)
@@ -194,15 +209,13 @@ class CompiledScan(CompiledFilterAggregate):
     # -- execution ---------------------------------------------------------
 
     def execute_into(self, callback) -> None:
-        from .tracing import span as _span
-
-        with _span("compiled_scan/execute", table=self.table.name):
+        with _span(self.SPAN, table=self.table.name):
             self._execute_into(callback)
 
     def _execute_into(self, callback) -> None:
         from .columnbatch import KIND_DICT, KIND_INT64
 
-        parts = self._filter_parts(self._visible_parts())
+        parts = self._serving_parts()
         # Column-kind validation against the leaves (the aggregate path's
         # gate minus group/value checks).
         for p in parts:
@@ -218,7 +231,8 @@ class CompiledScan(CompiledFilterAggregate):
         if not parts:
             return
         sp = self._superpart(parts)
-        idx = self._selected_rows(sp, parts)
+        with _span("scan/blocks"):
+            idx = self._selected_rows(sp, parts)
         charged = 0
         if self.allocator is not None:
             # selected-position transient (query/memory.go:17); charged
@@ -228,12 +242,16 @@ class CompiledScan(CompiledFilterAggregate):
             charged = int(idx.nbytes)
             self.allocator.allocate(charged)
         try:
-            self._materialize(sp, parts, idx, callback)
+            with _span("result/epilogue") as span:
+                rows = self._materialize(sp, parts, idx, callback)
+                if span is not None:
+                    span.attributes["rows"] = rows
         finally:
             if self.allocator is not None and charged:
                 self.allocator.free(charged)
 
-    def _materialize(self, sp, parts, idx, callback) -> None:
+    def _materialize(self, sp, parts, idx, callback) -> int:
+        """Emit the selected rows, batch by part; returns how many."""
         from .columnbatch import ColumnBatch
         from .query.physeval import project_expr
 
@@ -244,7 +262,7 @@ class CompiledScan(CompiledFilterAggregate):
             # stream, limit.go:17) — host materialization is bounded by n.
             idx = idx[: max(self.limit, 0)]
         if len(idx) == 0:
-            return
+            return 0
         offsets = sp["row_offsets"]
         # Split global positions into per-part local rows; emit one batch
         # per part with >= 1 selected row, in part-stream order — exactly
@@ -284,6 +302,7 @@ class CompiledScan(CompiledFilterAggregate):
                     self.allocator.free(nbytes)
                 continue
             callback(batch)
+        return len(idx)
 
 
 def match_plan_scan(plan, exec_options=None) -> CompiledScan:

@@ -65,12 +65,14 @@ from ..compiled import (
     CompiledFilterAggregate,
     NotCompilable,
     _CMP_OPS,
+    _copy_to_host,
     _take_clip,
     emit_output,
 )
 from ..device import ShardedTensor
 from ..ops import kernels as K
 from ..query import expr as E
+from ..tracing import span as _span
 from . import collectives as C
 from .shuffle import bucket_slots
 
@@ -255,6 +257,7 @@ class MeshFilterAggregate(CompiledFilterAggregate):
     """
 
     MAX_CODES = 1 << 20
+    SPAN = "mesh/execute"
 
     def __init__(self, spec, mesh, axis: str = "shards"):
         super().__init__(
@@ -667,17 +670,19 @@ class MeshFilterAggregate(CompiledFilterAggregate):
                 for f in fills
             ]
             offset = 0
-            for p in parts:
-                prog = self._local_shuffle_program(self._part_signature(p), num_codes)
-                prog(*self._part_args(p, self._part_data(p)), tabs=tabs, offset=offset)
-                offset += p.batch.num_rows
-            blob = torch.cat(tabs).cpu().numpy()
+            with _span("dense/parts", parts=len(parts), route="shuffle"):
+                for p in parts:
+                    prog = self._local_shuffle_program(self._part_signature(p), num_codes)
+                    prog(*self._part_args(p, self._part_data(p)), tabs=tabs, offset=offset)
+                    offset += p.batch.num_rows
+            blob = _copy_to_host(torch.cat(tabs))
         else:
-            blob, k_per = self._mesh_shuffle_blob(parts, num_codes, fills)
+            with _span("dense/parts", parts=len(parts), route="shuffle"):
+                blob, k_per = self._mesh_shuffle_blob(parts, num_codes, fills)
         if self.allocator is not None:
             self.allocator.allocate(int(blob.nbytes))
         try:
-            return self._shuffle_epilogue(blob, num_codes, k_per)
+            return self._run_epilogue(self._shuffle_epilogue, blob, num_codes, k_per)
         finally:
             # the one release of the reservation (the reference's epilogue
             # released it too, so a second query's bytes went with it)
@@ -727,7 +732,7 @@ class MeshFilterAggregate(CompiledFilterAggregate):
             for ti in range(len(fills))
             for shard_tabs in tabs
         ])
-        return blob.cpu().numpy(), k_per
+        return _copy_to_host(blob), k_per
 
     def _shuffle_epilogue(self, blob, num_codes, k_per):
         # table ti is [n_shards * k_per]: global slot g = j * k_per + slot
@@ -794,7 +799,7 @@ class MeshFilterAggregate(CompiledFilterAggregate):
         )
 
     def _execute(self):
-        parts = self._filter_parts(self._visible_parts())
+        parts = self._serving_parts()
         ranges = self._check_parts_common(parts)
         for plan in self.value_plans.values():
             vmin, vmax = ranges.get(plan.column, (None, None))
@@ -835,70 +840,72 @@ class MeshFilterAggregate(CompiledFilterAggregate):
         )
         acc: dict[str, Optional[object]] = {n: None for n in result_names}
         offset = 0
-        for p in parts:
-            sp = self._part_data(p)
-            sig = self._part_signature(p)
-            prog = self._program(sig, num_codes)
-            outs = prog(*self._part_args(p, sp))
-            counts_p, first_p = outs[0], outs[1]
-            counts_total = counts_total + counts_p
-            global_first = torch.minimum(
-                global_first, torch.where(counts_p > 0, first_p + offset, _BIG)
-            )
-            oi = 2
-            for spec in self.aggs:
-                name = spec.result_name
-                prev = acc[name]
-                if (
-                    spec.func == E.AGG_SUM
-                    and self.value_plans[spec.column].fexact is not None
-                ):
-                    planes = list(outs[oi : oi + 4])
-                    oi += 4
-                    acc[name] = (
-                        planes
-                        if prev is None
-                        else [a + b for a, b in zip(prev, planes)]
-                    )
-                    continue
-                if spec.func == E.AGG_UNIQUE:
-                    mn_p, mx_p, vc_p = outs[oi : oi + 3]
-                    oi += 3
-                    acc[name] = (
-                        [mn_p, mx_p, vc_p]
-                        if prev is None
-                        else [
-                            torch.minimum(prev[0], mn_p),
-                            torch.maximum(prev[1], mx_p),
-                            prev[2] + vc_p,
-                        ]
-                    )
-                    continue
-                out_p = outs[oi]
-                oi += 1
-                if prev is None:
-                    acc[name] = out_p
-                elif spec.func in (E.AGG_SUM, E.AGG_COUNT):
-                    acc[name] = prev + out_p
-                elif spec.func in (E.AGG_MIN, E.AGG_AND):
-                    acc[name] = torch.minimum(prev, out_p)
-                else:
-                    acc[name] = torch.maximum(prev, out_p)
-            # live rows only: padding rows never select
-            offset += p.batch.num_rows
+        route = "sorted" if num_codes > _SORTED_THRESHOLD else "segment"
+        with _span("dense/parts", parts=len(parts), route=route):
+            for p in parts:
+                sp = self._part_data(p)
+                sig = self._part_signature(p)
+                prog = self._program(sig, num_codes)
+                outs = prog(*self._part_args(p, sp))
+                counts_p, first_p = outs[0], outs[1]
+                counts_total = counts_total + counts_p
+                global_first = torch.minimum(
+                    global_first, torch.where(counts_p > 0, first_p + offset, _BIG)
+                )
+                oi = 2
+                for spec in self.aggs:
+                    name = spec.result_name
+                    prev = acc[name]
+                    if (
+                        spec.func == E.AGG_SUM
+                        and self.value_plans[spec.column].fexact is not None
+                    ):
+                        planes = list(outs[oi : oi + 4])
+                        oi += 4
+                        acc[name] = (
+                            planes
+                            if prev is None
+                            else [a + b for a, b in zip(prev, planes)]
+                        )
+                        continue
+                    if spec.func == E.AGG_UNIQUE:
+                        mn_p, mx_p, vc_p = outs[oi : oi + 3]
+                        oi += 3
+                        acc[name] = (
+                            [mn_p, mx_p, vc_p]
+                            if prev is None
+                            else [
+                                torch.minimum(prev[0], mn_p),
+                                torch.maximum(prev[1], mx_p),
+                                prev[2] + vc_p,
+                            ]
+                        )
+                        continue
+                    out_p = outs[oi]
+                    oi += 1
+                    if prev is None:
+                        acc[name] = out_p
+                    elif spec.func in (E.AGG_SUM, E.AGG_COUNT):
+                        acc[name] = prev + out_p
+                    elif spec.func in (E.AGG_MIN, E.AGG_AND):
+                        acc[name] = torch.minimum(prev, out_p)
+                    else:
+                        acc[name] = torch.maximum(prev, out_p)
+                # live rows only: padding rows never select
+                offset += p.batch.num_rows
 
         # ONE device-to-host copy for the whole query.
         blob_entries = [counts_total, global_first]
         for n in result_names:
             a = acc[n]
             blob_entries.extend(a if isinstance(a, list) else [a])
-        blob = torch.cat(blob_entries).cpu().numpy()
+        blob = _copy_to_host(torch.cat(blob_entries))
         if self.allocator is not None:
             # per-query transient accounting (query/memory.go:17); freed in
             # a finally so an epilogue error cannot leak the reservation
             self.allocator.allocate(int(blob.nbytes))
         try:
-            return self._dense_epilogue(blob, num_codes, result_names)
+            return self._run_epilogue(self._dense_epilogue, blob, num_codes, result_names)
         finally:
             if self.allocator is not None:
                 self.allocator.free(int(blob.nbytes))
@@ -995,6 +1002,8 @@ class DenseLocalAggregate(MeshFilterAggregate):
     cache, so group-bys past the kernels' 2048-code ceiling (up to 2^20
     compact codes, and to 2^27 on the shuffle route) stay device-resident
     across queries (the role of aggregate.go's unbounded group map)."""
+
+    SPAN = "dense/execute"
 
     def __init__(self, spec):
         from .mesh import make_mesh

@@ -7,6 +7,7 @@ mirroring the reference's Builder API (engine.go:48-196): Aggregate / Filter
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Optional, Sequence
 
 from . import expr as E
@@ -33,6 +34,8 @@ class LocalEngine:
         # (updated per execute; see LocalQueryBuilder._mark_path).
         self.last_serving_path: Optional[str] = None
         self.last_fallback_reasons: dict[str, str] = {}
+        # Sequence numbers of the engine's traced queries.
+        self.query_numbers = itertools.count()
 
     def scan_table(self, name: str) -> "LocalQueryBuilder":
         return LocalQueryBuilder(
@@ -102,16 +105,25 @@ class LocalQueryBuilder:
         return build_physical(self._optimized_plan(), self.engine.exec_options)
 
     def execute(self, callback: Callable[[ColumnBatch], None]) -> None:
+        from ..tracing import metrics_scope
+
         tracer = self.engine.exec_options.tracer
-        if tracer is None:
+        registry = self.engine.exec_options.metrics
+        if tracer is None and registry is None:
             self._execute(callback)
             return
-        # Per-query root span; inner layers (scan, convert, compiled
-        # executor) nest under it via tracing.span (the reference threads
-        # spans through Iterator/Build/Execute, table.go:752,
-        # physicalplan.go:296).
-        with tracer.span("query/execute") as root:
-            self._execute(callback, root)
+        with metrics_scope(registry):
+            if tracer is None:
+                self._execute(callback)
+                return
+            # Per-query root span; inner layers (scan, convert, compiled
+            # executor) nest under it via tracing.span (the reference
+            # threads spans through Iterator/Build/Execute, table.go:752,
+            # physicalplan.go:296).
+            with tracer.span(
+                "query/execute", query=next(self.engine.query_numbers)
+            ) as root:
+                self._execute(callback, root)
 
     def _mark_path(self, path: str, reasons: dict, root_span) -> None:
         """Serving-path observability (VERDICT r3 weak #7): which tier served
@@ -132,7 +144,7 @@ class LocalQueryBuilder:
             ).inc()
 
     def _execute(self, callback, root_span=None) -> None:
-        from ..tracing import span as _span
+        from ..tracing import count, span as _span
 
         with _span("plan/optimize"):
             plan = self._optimized_plan()
@@ -171,15 +183,21 @@ class LocalQueryBuilder:
                 callback(batch)
         from ..compiled import NotCompilable
 
+        def declined(path: str, e: NotCompilable) -> None:
+            reasons[path] = str(e) or type(e).__name__
+            count(f"queries_declined_{path}", f"queries the {path} tier declined")
+
         def try_tier(path: str, lower) -> bool:
             """Run one fast tier; True = served (results emitted). A
             NotCompilable records the decline reason and falls through;
             anything else (incl. MemoryLimitExceeded) propagates as a
             query error."""
             try:
-                out = lower(inner, self.engine.exec_options).execute()
+                with _span(f"{path}/lower"):
+                    prog = lower(inner, self.engine.exec_options)
+                out = prog.execute()
             except NotCompilable as e:
-                reasons[path] = str(e) or type(e).__name__
+                declined(path, e)
                 return False
             self._mark_path(path, reasons, root_span)
             emit([out])
@@ -227,7 +245,8 @@ class LocalQueryBuilder:
             from ..compiled_scan import lower_plan_scan
 
             try:
-                prog = lower_plan_scan(inner, self.engine.exec_options)
+                with _span("compiled_scan/lower"):
+                    prog = lower_plan_scan(inner, self.engine.exec_options)
                 if post_order is None and post_limit is None:
                     prog.execute_into(callback)
                 else:
@@ -237,7 +256,7 @@ class LocalQueryBuilder:
                 self._mark_path("compiled_scan", reasons, root_span)
                 return
             except NotCompilable as e:
-                reasons["compiled_scan"] = str(e) or type(e).__name__
+                declined("compiled_scan", e)
         with _span("physical/build"):
             output = build_physical(plan, self.engine.exec_options)
         self._mark_path("generic", reasons, root_span)

@@ -29,6 +29,8 @@ from .query import expr as E
 
 
 class SchemaMetaDistinct:
+    SPAN = "schema_meta/execute"
+
     def __init__(self, table, filters: list):
         self.table = table
         self.filters = filters  # bottom-up order (applied in chain order)
@@ -37,7 +39,7 @@ class SchemaMetaDistinct:
         from .query.physeval import filter_mask
         from .tracing import span as _span
 
-        with _span("schema_meta/execute", table=self.table.name):
+        with _span(self.SPAN, table=self.table.name):
             holder: dict = {}
 
             def run(tx):

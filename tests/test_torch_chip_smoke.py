@@ -87,3 +87,23 @@ def test_fuzz_phase(cut, capsys, monkeypatch):
     assert "fuzz x3 aggregates: 36 queries" in log and "fuzz x3 directed" not in log
     assert "0 out-of-gate float sums" in log
     assert not any(launches.values())
+
+
+def test_scan_layout_and_host_breakdown(cut, capsys, monkeypatch):
+    """Phase 2's scan lines, read from the scan spans (``scan/blocks``,
+    ``result/copy``, ``result/epilogue``) of traced queries."""
+    from frostdb_tpu_torch.query import expr as E
+    from frostdb_tpu_torch.query.engine import LocalEngine
+
+    monkeypatch.setattr(CS, "QUERY_REPS", 3)
+    db = ColumnStore(device="cpu").db("smoke")
+    CS.build_table(db, "t", 2)
+    engine = LocalEngine(db.table_provider())
+    overflow = CS.scan_layout(engine, E, 2 * CS.ROWS_PER_PART)
+    scans = [name for name, *_r in CS.scan_shapes(E, 0) if name.startswith("scan")]
+    assert sorted(overflow) == sorted(scans)
+    CS.scan_host_breakdown(engine, E, set(scans))
+    log = printed(capsys)
+    assert log.count("1 dispatches") + log.count("2 dispatches") == len(scans)
+    assert log.count("host breakdown (median ms)") == len(scans)
+    assert engine.exec_options.tracer is None

@@ -6,9 +6,21 @@ and nesting) with the same deterministic attributes (serving tier, plan
 text, parts scanned, fallback reasons), the same ``queries_served_*``
 counters, and after WAL, snapshot, compaction and rotation work the same
 durability metrics and the same exposed metric names.
+
+The port's trees pass through ``reference_view`` first: it drops the spans
+and attribute keys only the port emits (tracing.PORT_ONLY_SPANS, lifting
+their children, and PORT_ONLY_KEYS) and renames the port's tier spans to
+the reference's ``compiled/execute``. Everything the reference emits is
+still compared exactly, and a span the port adds without listing it fails.
+The port's own trees, with every attribute, are pinned per serving tier
+below (TIER_TREES), with the clock the spans share with torch.profiler.
 """
 
 import re
+import time
+
+import numpy as np
+import pytest
 
 import test_differential_fuzz as FZ
 import test_tracing_integration as TTI
@@ -17,9 +29,17 @@ from frostdb_tpu.query.physical import ExecOptions as JOptions
 from frostdb_tpu.snapshot import write_snapshot as j_write_snapshot
 from test_torch_engine import port_view
 
+from frostdb_tpu_torch import compiled as PC
+from frostdb_tpu_torch.columnbatch import Column, ColumnBatch, KIND_DICT, KIND_INT64
+from frostdb_tpu_torch.db import ColumnStore
 from frostdb_tpu_torch.metrics import MetricsRegistry as PRegistry
+from frostdb_tpu_torch.query import expr as PE
+from frostdb_tpu_torch.query.engine import LocalEngine as PEngine
 from frostdb_tpu_torch.query.physical import ExecOptions as POptions
+from frostdb_tpu_torch.schema import sample_definition
 from frostdb_tpu_torch.snapshot import write_snapshot as p_write_snapshot
+from frostdb_tpu_torch.table import TableConfig
+from frostdb_tpu_torch.tracing import PORT_ONLY_KEYS, PORT_ONLY_SPANS, REFERENCE_TIER_SPAN, Tracer
 
 PTI = port_view(TTI)
 MODS = (TTI, PTI)
@@ -41,6 +61,30 @@ def tree(span):
         {k: attrs[k] for k in STABLE if k in attrs},
         [tree(c) for c in span.children],
     )
+
+
+def reference_view(span) -> list:
+    """A port span as ``tree`` gives the reference's: port-only spans
+    dropped with their children lifted, port-only keys dropped, tier spans
+    renamed. A list: the span's tree, or a dropped span's children's."""
+    children = [t for c in span.children for t in reference_view(c)]
+    if span.name in PORT_ONLY_SPANS:
+        return children
+    drop = PORT_ONLY_KEYS.get(span.name, ())
+    attrs = {k: v for k, v in span.attributes.items() if k not in drop}
+    return [(
+        REFERENCE_TIER_SPAN.get(span.name, span.name),
+        sorted(attrs),
+        {k: attrs[k] for k in STABLE if k in attrs},
+        children,
+    )]
+
+
+def compared_tree(M, span):
+    if M is TTI:
+        return tree(span)
+    (t,) = reference_view(span)
+    return t
 
 
 def agg_q(eng, E):
@@ -82,7 +126,8 @@ def traced(M, queries, compiled=True):
         out = []
         make_q(eng, M.E).execute(out.append)
         got.append(
-            (FZ.rows(out), eng.last_serving_path, eng.last_fallback_reasons, tree(tracer.roots[-1]))
+            (FZ.rows(out), eng.last_serving_path, eng.last_fallback_reasons,
+             compared_tree(M, tracer.roots[-1]))
         )
     assert len(tracer.roots) == len(queries)
     counters = {
@@ -185,3 +230,338 @@ def test_chip_smoke_trace_trees_are_the_reference_trees():
     assert {name: (rows, path, tree) for name, rows, path, tree, _a in got} == ref
     assert {name: tree for name, (_r, _p, tree) in ref.items()} == CS.TRACE_TREES
     assert served == {"compiled": 1, "generic": 1}
+
+
+# ---------------------------------------------------------------------------
+# The port's own trees: every span and attribute, per serving tier.
+
+
+def tier_table(db):
+    """Two sorted inserts of 1,500 rows (timestamps 0-2999, one stack per
+    row, three labels): two parts, so a time filter prunes one."""
+    t = db.table("t", TableConfig(schema=sample_definition()))
+    d_et, d_l, d_st = (t.dictionary(f) for f in ("example_type", "labels", "stacktrace"))
+    n = 1500
+    ones = np.ones(n, dtype=bool)
+    for lo in (0, n):
+        t.insert_record(ColumnBatch([
+            Column("example_type", KIND_DICT, *d_et.encode(["cpu"] * n), d_et),
+            Column("labels.label1", KIND_DICT, *d_l.encode([f"l{i % 3}" for i in range(n)]), d_l),
+            Column("stacktrace", KIND_DICT, *d_st.encode([f"s{lo + i}" for i in range(n)]), d_st),
+            Column("timestamp", KIND_INT64, np.arange(lo, lo + n, dtype=np.int64), ones),
+            Column("value", KIND_INT64, np.ones(n, dtype=np.int64), ones),
+        ], n), sort=True)
+
+
+TIER_QUERIES = {
+    "compiled": lambda e: e.scan_table("t").filter(PE.Col("timestamp").gt_eq(2000)).aggregate(
+        [PE.Sum(PE.Col("value"))], [PE.Col("labels.label1")]),
+    "compiled_distinct": lambda e: e.scan_table("t").distinct(PE.Col("labels.label1")),
+    # 3,000 stacks: past the compiled tier's 2,048 codes, on the dense
+    # tier's segment route.
+    "dense": lambda e: e.scan_table("t").aggregate([PE.Sum(PE.Col("value"))], [PE.Col("stacktrace")]),
+    "compiled_scan": lambda e: e.scan_table("t").filter(PE.Col("timestamp").gt(2990)).project(
+        PE.Col("value")),
+    "schema_meta": lambda e: e.scan_schema("t").distinct(PE.Col("name")),
+    "generic": lambda e: e.scan_table("t").project(PE.Col("value")).order_by("value"),
+}
+
+COUNTERS = ("planes_built_total", "programs_built_total", "scan_blocks_refiltered_total")
+
+
+def port_tree(span):
+    """(name, attributes but the drawn plan[, children])."""
+    attrs = {k: v for k, v in span.attributes.items() if k != "plan"}
+    return (span.name, attrs, [port_tree(c) for c in span.children]) if span.children else (
+        span.name, attrs)
+
+
+def names(span):
+    return (span.name, [names(c) for c in span.children])
+
+
+def counted(registry) -> dict:
+    """The registry's serving counters that moved: served, declined, built."""
+    out = {}
+    for line in registry.expose().splitlines():
+        name, value = line.split()
+        if name.startswith(("queries_served_", "queries_declined_")) or name in COUNTERS:
+            out[name] = float(value)
+    return out
+
+
+# Per tier: the first query's tree (cache misses: the superpart, its
+# planes, the fused program) and the second's names (caches hit; the
+# per-query LUTs and remaps are built again).
+TIER_TREES = {'compiled': (('query/execute',
+                            {'path': 'compiled', 'query': 0},
+                            [('plan/optimize', {}),
+                             ('compiled/lower', {}),
+                             ('compiled/execute',
+                              {'group': 'labels.label1', 'parts': 1, 'parts_pruned': 1, 'table': 't'},
+                              [('groups/remap', {'codes': 3}),
+                               ('planes/build', {'bytes': 0, 'kind': 'superpart'}),
+                               ('program/build',
+                                {'structure': "groups ['dict'], 1 clauses, 1 value plans, K 3, cmp ('band', "
+                                              "('>=',))"}),
+                               ('planes/build', {'bytes': 8192, 'kind': 'codes'}),
+                               ('planes/build',
+                                {'bytes': 8192, 'kind': 'cmpmask'},
+                                [('planes/build',
+                                  {'bytes': 8192, 'kind': 'basesel'},
+                                  [('planes/build', {'bytes': 8192, 'kind': 'rowvalid'}),
+                                   ('planes/build', {'bytes': 8192, 'kind': 'valid'})]),
+                                 ('planes/build', {'bytes': 8192, 'kind': 'valid'}),
+                                 ('planes/build',
+                                  {'bytes': 8192, 'kind': 'i32m'},
+                                  [('planes/build', {'bytes': 16384, 'kind': 'int64_m'})])]),
+                               ('planes/build',
+                                {'bytes': 8192, 'kind': 'vi32'},
+                                [('planes/build', {'bytes': 16384, 'kind': 'int64'})]),
+                               ('result/copy', {'bytes': 72}),
+                               ('result/epilogue', {'rows': 3})])]),
+                           ('query/execute',
+                            [('plan/optimize', []),
+                             ('compiled/lower', []),
+                             ('compiled/execute',
+                              [('groups/remap', []), ('result/copy', []), ('result/epilogue', [])])])),
+              'compiled_distinct': (('query/execute',
+                                     {'fallback_reasons': {'compiled': 'root is not an aggregation',
+                                                           'compiled_join': 'root is not an aggregation',
+                                                           'dense': 'root is not an aggregation'},
+                                      'path': 'compiled_distinct',
+                                      'query': 0},
+                                     [('plan/optimize', {}),
+                                      ('compiled/lower', {'declined': 'root is not an aggregation'}),
+                                      ('compiled_join/lower', {'declined': 'root is not an aggregation'}),
+                                      ('dense/lower', {'declined': 'root is not an aggregation'}),
+                                      ('compiled_distinct/lower', {}),
+                                      ('compiled_distinct/execute',
+                                       {'group': 'labels.label1', 'parts': 2, 'parts_pruned': 0, 'table': 't'},
+                                       [('groups/remap', {'codes': 3}),
+                                        ('planes/build', {'bytes': 0, 'kind': 'superpart'}),
+                                        ('program/build',
+                                         {'structure': "groups ['dict'], 0 clauses, 0 value plans, K 3, cmp "
+                                                       'None'}),
+                                        ('planes/build', {'bytes': 16384, 'kind': 'codes'}),
+                                        ('planes/build',
+                                         {'bytes': 16384, 'kind': 'basesel'},
+                                         [('planes/build', {'bytes': 16384, 'kind': 'rowvalid'}),
+                                          ('planes/build', {'bytes': 16384, 'kind': 'valid'})]),
+                                        ('result/copy', {'bytes': 48}),
+                                        ('result/epilogue', {'rows': 3})])]),
+                                    ('query/execute',
+                                     [('plan/optimize', []),
+                                      ('compiled/lower', []),
+                                      ('compiled_join/lower', []),
+                                      ('dense/lower', []),
+                                      ('compiled_distinct/lower', []),
+                                      ('compiled_distinct/execute',
+                                       [('groups/remap', []), ('result/copy', []), ('result/epilogue', [])])])),
+              'compiled_scan': (('query/execute',
+                                 {'fallback_reasons': {'compiled': 'root is not an aggregation',
+                                                       'compiled_distinct': 'root is not a distinct',
+                                                       'compiled_join': 'root is not an aggregation',
+                                                       'dense': 'root is not an aggregation',
+                                                       'schema_meta': 'schema tier serves distinct+filters '
+                                                                      'only'},
+                                  'path': 'compiled_scan',
+                                  'query': 0},
+                                 [('plan/optimize', {}),
+                                  ('compiled/lower', {'declined': 'root is not an aggregation'}),
+                                  ('compiled_join/lower', {'declined': 'root is not an aggregation'}),
+                                  ('dense/lower', {'declined': 'root is not an aggregation'}),
+                                  ('compiled_distinct/lower', {'declined': 'root is not a distinct'}),
+                                  ('schema_meta/lower',
+                                   {'declined': 'schema tier serves distinct+filters only'}),
+                                  ('compiled_scan/lower', {}),
+                                  ('compiled_scan/execute',
+                                   {'parts': 1, 'parts_pruned': 1, 'table': 't'},
+                                   [('planes/build', {'bytes': 0, 'kind': 'superpart'}),
+                                    ('scan/blocks',
+                                     {'blocks': 1, 'capb': 16, 'dispatches': 1, 'refiltered': 0},
+                                     [('planes/build', {'bytes': 8192, 'kind': 'rowvalid'}),
+                                      ('planes/build',
+                                       {'bytes': 8192, 'kind': 'i32m'},
+                                       [('planes/build', {'bytes': 16384, 'kind': 'int64_m'})]),
+                                      ('planes/build', {'bytes': 8192, 'kind': 'valid_m'}),
+                                      ('planes/build', {'bytes': 8192, 'kind': 'has'}),
+                                      ('result/copy', {'bytes': 68})]),
+                                    ('result/epilogue', {'rows': 9})])]),
+                                ('query/execute',
+                                 [('plan/optimize', []),
+                                  ('compiled/lower', []),
+                                  ('compiled_join/lower', []),
+                                  ('dense/lower', []),
+                                  ('compiled_distinct/lower', []),
+                                  ('schema_meta/lower', []),
+                                  ('compiled_scan/lower', []),
+                                  ('compiled_scan/execute',
+                                   [('scan/blocks', [('result/copy', [])]), ('result/epilogue', [])])])),
+              'dense': (('query/execute',
+                         {'fallback_reasons': {'compiled': 'group code space 3000 > 2048',
+                                               'compiled_join': 'no join below the aggregation'},
+                          'path': 'dense',
+                          'query': 0},
+                         [('plan/optimize', {}),
+                          ('compiled/lower', {}),
+                          ('compiled/execute',
+                           {'declined': 'group code space 3000 > 2048',
+                            'group': 'stacktrace',
+                            'parts': 2,
+                            'parts_pruned': 0,
+                            'table': 't'},
+                           [('groups/remap', {'codes': 3000, 'declined': 'group code space 3000 > 2048'})]),
+                          ('compiled_join/lower', {'declined': 'no join below the aggregation'}),
+                          ('dense/lower', {}),
+                          ('dense/execute',
+                           {'group': 'stacktrace', 'parts': 2, 'parts_pruned': 0, 'table': 't'},
+                           [('groups/remap', {'codes': 3000}),
+                            ('dense/parts',
+                             {'parts': 2, 'route': 'segment'},
+                             [('planes/build', {'bytes': 12000, 'kind': 'remap'})]),
+                            ('result/copy', {'bytes': 72000}),
+                            ('result/epilogue', {'rows': 3000})])]),
+                        ('query/execute',
+                         [('plan/optimize', []),
+                          ('compiled/lower', []),
+                          ('compiled/execute', [('groups/remap', [])]),
+                          ('compiled_join/lower', []),
+                          ('dense/lower', []),
+                          ('dense/execute',
+                           [('groups/remap', []),
+                            ('dense/parts', [('planes/build', [])]),
+                            ('result/copy', []),
+                            ('result/epilogue', [])])])),
+              'generic': (('query/execute',
+                           {'fallback_reasons': {'compiled': 'root is not an aggregation',
+                                                 'compiled_distinct': 'root is not a distinct',
+                                                 'compiled_join': 'root is not an aggregation',
+                                                 'compiled_scan': 'unfiltered scan (generic path)',
+                                                 'dense': 'root is not an aggregation',
+                                                 'schema_meta': 'schema tier serves distinct+filters only'},
+                            'path': 'generic',
+                            'query': 0},
+                           [('plan/optimize', {}),
+                            ('compiled/lower', {'declined': 'root is not an aggregation'}),
+                            ('compiled_join/lower', {'declined': 'root is not an aggregation'}),
+                            ('dense/lower', {'declined': 'root is not an aggregation'}),
+                            ('compiled_distinct/lower', {'declined': 'root is not a distinct'}),
+                            ('schema_meta/lower', {'declined': 'schema tier serves distinct+filters only'}),
+                            ('compiled_scan/lower', {'declined': 'unfiltered scan (generic path)'}),
+                            ('physical/build', {}),
+                            ('physical/execute',
+                             {},
+                             [('table/iterator',
+                               {'parts_pruned': 0, 'parts_scanned': 2, 'table': 't', 'tx': 3})])]),
+                          ('query/execute',
+                           [('plan/optimize', []),
+                            ('compiled/lower', []),
+                            ('compiled_join/lower', []),
+                            ('dense/lower', []),
+                            ('compiled_distinct/lower', []),
+                            ('schema_meta/lower', []),
+                            ('compiled_scan/lower', []),
+                            ('physical/build', []),
+                            ('physical/execute', [('table/iterator', [])])])),
+              'schema_meta': (('query/execute',
+                               {'fallback_reasons': {'compiled': 'root is not an aggregation',
+                                                     'compiled_distinct': 'input is not a plain table scan',
+                                                     'compiled_join': 'root is not an aggregation',
+                                                     'dense': 'root is not an aggregation'},
+                                'path': 'schema_meta',
+                                'query': 0},
+                               [('plan/optimize', {}),
+                                ('compiled/lower', {'declined': 'root is not an aggregation'}),
+                                ('compiled_join/lower', {'declined': 'root is not an aggregation'}),
+                                ('dense/lower', {'declined': 'root is not an aggregation'}),
+                                ('compiled_distinct/lower', {'declined': 'input is not a plain table scan'}),
+                                ('schema_meta/lower', {}),
+                                ('schema_meta/execute', {'table': 't'})]),
+                              ('query/execute',
+                               [('plan/optimize', []),
+                                ('compiled/lower', []),
+                                ('compiled_join/lower', []),
+                                ('dense/lower', []),
+                                ('compiled_distinct/lower', []),
+                                ('schema_meta/lower', []),
+                                ('schema_meta/execute', [])]))}
+
+# Per tier, the counters after both queries.
+TIER_COUNTERS = {
+    "compiled": {"planes_built_total": 11, "programs_built_total": 1,
+                 "queries_served_compiled": 2},
+    "compiled_distinct": {"planes_built_total": 5, "programs_built_total": 1,
+                          "queries_declined_compiled": 2, "queries_declined_compiled_join": 2,
+                          "queries_declined_dense": 2, "queries_served_compiled_distinct": 2},
+    "dense": {"planes_built_total": 2, "queries_declined_compiled": 2,
+              "queries_declined_compiled_join": 2, "queries_served_dense": 2},
+    "compiled_scan": {"planes_built_total": 6, "queries_declined_compiled": 2,
+                      "queries_declined_compiled_distinct": 2, "queries_declined_compiled_join": 2,
+                      "queries_declined_dense": 2, "queries_declined_schema_meta": 2,
+                      "queries_served_compiled_scan": 2},
+    "schema_meta": {"queries_declined_compiled": 2, "queries_declined_compiled_distinct": 2,
+                    "queries_declined_compiled_join": 2, "queries_declined_dense": 2,
+                    "queries_served_schema_meta": 2},
+    "generic": {"queries_declined_compiled": 2, "queries_declined_compiled_distinct": 2,
+                "queries_declined_compiled_join": 2, "queries_declined_compiled_scan": 2,
+                "queries_declined_dense": 2, "queries_declined_schema_meta": 2,
+                "queries_served_generic": 2},
+}
+
+
+def run_tier(tier, tracer, monkeypatch):
+    """Two runs of the tier's query on a fresh table and a fresh fused
+    program cache; returns (paths, counters)."""
+    monkeypatch.setattr(PC, "_FUSED_CACHE", {})
+    db = ColumnStore(device="cpu").db("tr")
+    tier_table(db)
+    registry = PRegistry()
+    eng = PEngine(db.table_provider(), POptions(tracer=tracer, metrics=registry))
+    paths = []
+    for _ in range(2):
+        TIER_QUERIES[tier](eng).execute(lambda b: None)
+        paths.append(eng.last_serving_path)
+    return paths, counted(registry)
+
+
+@pytest.mark.parametrize("tier", sorted(TIER_QUERIES))
+def test_port_span_tree_of_each_tier(tier, monkeypatch):
+    tracer = Tracer()
+    paths, counters = run_tier(tier, tracer, monkeypatch)
+    assert paths == [tier, tier]
+    first, second = tracer.roots
+    assert (port_tree(first), names(second)) == TIER_TREES[tier]
+    assert counters == TIER_COUNTERS[tier]
+    # The same counters without a tracer: a registry alone counts.
+    assert run_tier(tier, None, monkeypatch)[1] == counters
+
+
+def test_reference_view_keeps_an_unlisted_span():
+    """A span the port adds without listing it stays in the compared tree,
+    so the comparison with the reference fails until it is listed."""
+    tracer = Tracer()
+    with tracer.span("query/execute", query=0):
+        with tracer.span("dense/execute", table="t", parts=1, parts_pruned=0):
+            with tracer.span("groups/remap", codes=3):
+                with tracer.span("unlisted/work"):
+                    pass
+    (root,) = tracer.roots
+    assert reference_view(root) == [("query/execute", [], {}, [
+        ("compiled/execute", ["table"], {"table": "t"}, [("unlisted/work", [], {}, [])])])]
+
+
+def test_span_clock_is_the_profilers():
+    """A span's start and end lie within 1 ms of its record_function
+    event's in torch.profiler's trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tracer = Tracer()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tracer.span("clock/probe"):
+            time.sleep(0.005)
+    (s,) = tracer.roots
+    (e,) = [e for e in prof.profiler.kineto_results.events() if e.name() == "clock/probe"]
+    assert abs(e.start_ns() - s.start_ns) < 1_000_000
+    assert abs(e.start_ns() + e.duration_ns() - s.end_ns) < 1_000_000
+    assert s.duration == (s.end_ns - s.start_ns) / 1e9 >= 0.005
