@@ -1726,14 +1726,21 @@ class CompiledFilterAggregate:
         )
 
     def _ordered_sort(self, order_arr: np.ndarray) -> np.ndarray:
-        """Key-order re-sort under ordered_aggregations: OrderedAggregate
-        emits groups sorted by the group key tuple's string values
-        (ColumnBatch.sort_indices ranks dict codes via sort_ranks); keys
-        are unique so a stable lexicographic re-sort of the emitted codes
+        """Key-order re-sort of the emitted codes under
+        ordered_aggregations (see ``_ordered_positions``)."""
+        pos = self._ordered_positions(order_arr)
+        return order_arr if pos is None else order_arr[pos]
+
+    def _ordered_positions(self, codes: np.ndarray) -> Optional[np.ndarray]:
+        """Under ordered_aggregations, the permutation of the emitted
+        ``codes``' positions into key order (None otherwise):
+        OrderedAggregate emits groups sorted by the group key tuple's string
+        values (ColumnBatch.sort_indices ranks dict codes via sort_ranks);
+        keys are unique so a stable lexicographic sort of the codes
         reproduces that order exactly."""
-        if not self.ordered or not len(order_arr):
-            return order_arr
-        fams = self._decode_codes(order_arr)
+        if not self.ordered or not len(codes):
+            return None
+        fams = self._decode_codes(codes)
         keys = [
             fam
             if gcol.kind != "dict"
@@ -1741,7 +1748,7 @@ class CompiledFilterAggregate:
             for gcol, fam in zip(self._gplan, fams)
         ]
         # np.lexsort sorts by the LAST key first.
-        return order_arr[np.lexsort(tuple(reversed(keys)))]
+        return np.lexsort(tuple(reversed(keys)))
 
     def _emitted_group_cols(self, order_arr: np.ndarray) -> list[tuple]:
         """emit_output's group-column spec: per column (name, dictionary,
@@ -2107,18 +2114,32 @@ def _build_fused_program(structure):
 
 def emit_output(
     group_cols: list,
-    order_arr: np.ndarray,
+    order_arr: Optional[np.ndarray],
     result_names: Sequence[str],
     by_name: dict,
     output_projection,
+    ordered_rows: Optional[int] = None,
 ) -> ColumnBatch:
     """Materialize the output batch from dense [K] host partials + the group
     emission order — shared by the compiled and mesh executors so both emit
     byte-identical batches. ``order_arr`` indexes the [K] partials;
     ``group_cols`` is a list of (name, dictionary, family_codes) — the
     emitted group key columns in plan order (family codes differ from
-    order_arr when the kernel ran in a compact/combined code space)."""
-    n = len(order_arr)
+    order_arr when the kernel ran in a compact/combined code space). With
+    ``ordered_rows`` the partials already hold the emitted groups in
+    emission order (the dense tier orders them on the device): their first
+    ``ordered_rows`` rows are emitted and ``order_arr`` is not read."""
+    if ordered_rows is None:
+        n = len(order_arr)
+
+        def take(a):
+            return a[order_arr] if n else a[:0]
+
+    else:
+        n = ordered_rows
+
+        def take(a):
+            return a[:n]
 
     def group_column(i):
         name, dictionary, codes, *rest = group_cols[i]
@@ -2161,10 +2182,8 @@ def emit_output(
         return Column(
             out_name,
             kind,
-            src[order_arr] if n else src[:0],
-            (validity[order_arr] if n else validity[:0])
-            if validity is not None
-            else np.ones(n, dtype=bool),
+            take(src),
+            take(validity) if validity is not None else np.ones(n, dtype=bool),
         )
 
     if output_projection is None:
@@ -2186,8 +2205,8 @@ def emit_output(
             col = agg_column(out_name, by_name[src_name])
         else:  # ("div", out, sum_name, count_name)
             _, out_name, s_name, c_name = item
-            s = by_name[s_name][order_arr] if n else by_name[s_name][:0]
-            c = by_name[c_name][order_arr] if n else by_name[c_name][:0]
+            s = take(by_name[s_name])
+            c = take(by_name[c_name])
             # Go-style truncation toward zero; division by zero emits
             # null — exactly ops/kernels.arith's integer "/" semantics.
             valid = c != 0

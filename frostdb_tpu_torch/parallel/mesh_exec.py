@@ -26,7 +26,9 @@ shards; shard ``s`` holds part rows ``[s * per_shard, (s + 1) *
 per_shard)``), parts accumulate the minimum global stream position (a
 part's rows start at the sum of the live rows of the parts before it;
 padding rows never select and never move an offset), and groups emit in
-that first-occurrence order (or key order under ordered_aggregations).
+that first-occurrence order (or key order under ordered_aggregations). The
+order is sorted on the device and every [K] partial is gathered into it
+before the query's one copy, so the host epilogue only slices.
 
 Scan state is incremental per part: each immutable part caches one
 row-sharded mirror per (mesh, axis) (``Part.device_sharded``) until the
@@ -72,7 +74,7 @@ from ..compiled import (
 from ..device import ShardedTensor
 from ..ops import kernels as K
 from ..query import expr as E
-from ..tracing import span as _span
+from ..tracing import annotate as _annotate, count, span as _span
 from . import collectives as C
 from .shuffle import bucket_slots
 
@@ -894,12 +896,29 @@ class MeshFilterAggregate(CompiledFilterAggregate):
                 # live rows only: padding rows never select
                 offset += p.batch.num_rows
 
-        # ONE device-to-host copy for the whole query.
+        # Group emission order = first occurrence among selected rows of the
+        # concatenated part stream (matching kernels.group_ids), absent
+        # codes last. Each row has exactly one code, so present codes'
+        # positions are distinct and any sort gives that one order; they
+        # lie below ``offset``, the sentinel, which narrows the keys to
+        # int32 (half the radix passes) whenever it fits.
+        key = torch.where(counts_total > 0, global_first, offset)
+        if offset < 2**31:
+            key = key.to(torch.int32)
+        perm = torch.sort(key).indices
+        count(
+            "dense_device_order_total",
+            "dense-tier queries whose emission order was computed on the device",
+        )
+        # Every [K] row gathered into that order, the permutation in the
+        # place of ``global_first``; ONE device-to-host copy for the query.
         blob_entries = [counts_total, global_first]
         for n in result_names:
             a = acc[n]
             blob_entries.extend(a if isinstance(a, list) else [a])
-        blob = _copy_to_host(torch.cat(blob_entries))
+        rows = torch.index_select(torch.stack(blob_entries), 1, perm)
+        rows[1] = perm
+        blob = _copy_to_host(rows.reshape(-1))
         if self.allocator is not None:
             # per-query transient accounting (query/memory.go:17); freed in
             # a finally so an epilogue error cannot leak the reservation
@@ -911,10 +930,18 @@ class MeshFilterAggregate(CompiledFilterAggregate):
                 self.allocator.free(int(blob.nbytes))
 
     def _dense_epilogue(self, blob, num_codes, result_names):
-        counts_np = blob[:num_codes]
-        first_np = blob[num_codes : 2 * num_codes]
+        # The rows arrive in emission order (see _execute), the present
+        # codes first: row 1 holds the codes themselves.
+        _annotate(order="device")
+        rows = blob.reshape(-1, num_codes)
+        n = int(np.count_nonzero(rows[0]))
+        rows = rows[:, :n]
+        pos = self._ordered_positions(rows[1])
+        if pos is not None:
+            rows = rows[:, pos]
+        counts_np = rows[0]
         by_name: dict[str, np.ndarray] = {}
-        off = 2 * num_codes
+        ri = 2
         for j, name in enumerate(result_names):
             spec = self.aggs[j]
             plan = (
@@ -929,27 +956,20 @@ class MeshFilterAggregate(CompiledFilterAggregate):
             ):
                 from ..floatsum import recombine
 
-                pls = []
-                for _pi in range(4):
-                    pls.append(blob[off : off + num_codes])
-                    off += num_codes
-                by_name[name] = recombine(pls, plan.fexact)
+                by_name[name] = recombine(rows[ri : ri + 4], plan.fexact)
+                ri += 4
                 continue
             if spec.func == E.AGG_UNIQUE:
-                mn = blob[off : off + num_codes]
-                mx = blob[off + num_codes : off + 2 * num_codes]
-                vc = blob[off + 2 * num_codes : off + 3 * num_codes]
-                off += 3 * num_codes
+                mn, mx, vc = rows[ri], rows[ri + 1], rows[ri + 2]
+                ri += 3
                 uvalid = (mn == mx) & (vc == counts_np)
                 by_name[name] = (np.where(uvalid, mn, 0), uvalid)
                 continue
+            vals = rows[ri]
+            ri += 1
             if spec.func == E.AGG_AND:
-                vals = blob[off : off + num_codes]
-                off += num_codes
                 by_name[name] = (vals > 0).astype(np.bool_)
                 continue
-            vals = blob[off : off + num_codes]
-            off += num_codes
             if (
                 spec.func in (E.AGG_MIN, E.AGG_MAX)
                 and plan is not None
@@ -964,19 +984,13 @@ class MeshFilterAggregate(CompiledFilterAggregate):
                 vals = vals.astype(np.float64)
             by_name[name] = vals
 
-        # Group emission order = first occurrence among selected rows of the
-        # concatenated part stream (matching kernels.group_ids); each row
-        # has exactly one code so stream positions are distinct.
-        present = np.nonzero(counts_np > 0)[0]
-        order_arr = present[np.argsort(first_np[present], kind="stable")]
-        order_arr = self._ordered_sort(order_arr.astype(np.int64))
-
         return emit_output(
-            self._emitted_group_cols(order_arr),
-            order_arr,
+            self._emitted_group_cols(rows[1]),
+            None,
             result_names,
             by_name,
             self.output_projection,
+            ordered_rows=n,
         )
 
 

@@ -14,6 +14,8 @@ reference's double release of the shuffle route's memory reservation
 (marked ``divergence``).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -32,7 +34,9 @@ from frostdb_tpu.query.physical import ExecOptions as JOptions
 from test_torch_engine import carry
 
 import frostdb_tpu_torch as P
-from frostdb_tpu_torch.columnbatch import Column, ColumnBatch, KIND_DICT, KIND_INT64
+from frostdb_tpu_torch.columnbatch import (
+    Column, ColumnBatch, KIND_BOOL, KIND_DICT, KIND_FLOAT64, KIND_INT64,
+)
 from frostdb_tpu_torch.memorylimit import LimitAllocator, MemoryLimitExceeded
 from frostdb_tpu_torch.ops import kernels as PK
 from frostdb_tpu_torch.parallel import mesh_exec as ME
@@ -40,8 +44,12 @@ from frostdb_tpu_torch.parallel.mesh import make_mesh
 from frostdb_tpu_torch.query import expr as PE
 from frostdb_tpu_torch.query.engine import LocalEngine as PEngine
 from frostdb_tpu_torch.query.physical import ExecOptions as POptions
-from frostdb_tpu_torch.schema import sample_definition
+from frostdb_tpu_torch.schema import (
+    ColumnDef, ENCODING_RLE_DICTIONARY, SchemaDef, SortingColumnDef, StorageLayout,
+    TYPE_BOOL, TYPE_DOUBLE, TYPE_INT64, TYPE_STRING, sample_definition,
+)
 from frostdb_tpu_torch.table import TableConfig
+from frostdb_tpu_torch.tracing import Tracer
 
 
 def run_both(jdb, make_q, names=("t",), pdb=None, **opts):
@@ -347,6 +355,120 @@ def test_make_mesh_is_one_device_only():
     assert mesh8.devices == (torch.device("cpu"),) * 8
     with pytest.raises(ValueError):
         make_mesh(0, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# The dense tier's rows and their order against the port's generic DAG.
+# The emission order is sorted on the device and every partial arrives in
+# it; these cases hold that order (first selected occurrence in the part
+# stream, or key order under ordered_aggregations) to the generic DAG's.
+
+# (route, group columns): the distinct values of each group column, so the
+# code space lands on the segment route (2,049-4,096) or the sorted one.
+_ORDER_SPACES = {
+    ("segment", 1): (3000,),
+    ("sorted", 1): (6000,),
+    ("segment", 2): (60, 60),
+    ("sorted", 2): (100, 70),
+}
+
+# One aggregation a query: under ordered_aggregations the planner picks
+# OrderedAggregate (key order) only for a single aggregation.
+_ORDER_AGGS = {
+    "sum": lambda E: [E.Sum(E.Col("v"))],
+    "count": lambda E: [E.Count(E.Col("v"))],
+    "min": lambda E: [E.Min(E.Col("v"))],
+    "max": lambda E: [E.Max(E.Col("v"))],
+    "unique": lambda E: [E.Unique(E.Col("v"))],
+    "and": lambda E: [E.AndAgg(E.Col("b"))],
+    "float_sum": lambda E: [E.Sum(E.Col("f"))],
+}
+
+
+def _order_schema(n_groups):
+    dict_layout = StorageLayout(TYPE_STRING, encoding=ENCODING_RLE_DICTIONARY)
+    return SchemaDef(
+        "t",
+        tuple(ColumnDef(f"g{i}", dict_layout) for i in range(n_groups)) + (
+            ColumnDef("ts", StorageLayout(TYPE_INT64)),
+            ColumnDef("v", StorageLayout(TYPE_INT64, nullable=True)),
+            ColumnDef("b", StorageLayout(TYPE_BOOL, nullable=True)),
+            ColumnDef("f", StorageLayout(TYPE_DOUBLE, nullable=True)),
+        ),
+        tuple(SortingColumnDef(f"g{i}", "asc") for i in range(n_groups))
+        + (SortingColumnDef("ts", "asc"),),
+    )
+
+
+@functools.cache
+def _order_db(space):
+    """Two parts, each sorted by its group values, in which every
+    combination of the group values occurs (in a shuffled order, then again
+    at random), so an unfiltered query leaves no code empty. The values'
+    codes follow their first use, and part 2 brings keys below part 1's:
+    neither code order nor first occurrence is key order."""
+    sizes = _ORDER_SPACES[space]
+    rng = np.random.default_rng(sum(sizes))
+    k = int(np.prod(sizes))
+    combos = np.concatenate([rng.permutation(k), rng.integers(0, k, k // 2)])
+    db = P.ColumnStore(device="cpu").db("order")
+    t = db.table("t", TableConfig(schema=_order_schema(len(sizes))))
+    dicts = [t.dictionary(f"g{i}") for i in range(len(sizes))]
+    n_all = len(combos)
+    for lo, hi in ((0, n_all // 2), (n_all // 2, n_all)):
+        c, n = combos[lo:hi], hi - lo
+        cols, rest = [], c
+        for i in reversed(range(len(sizes))):
+            codes, valid = dicts[i].encode([f"v{x}" for x in rest % sizes[i]])
+            cols.insert(0, Column(f"g{i}", KIND_DICT, codes, valid, dicts[i]))
+            rest = rest // sizes[i]
+        ones = np.ones(n, dtype=bool)
+        vv, bv, fv = (rng.random(n) > 0.1 for _ in range(3))
+        t.insert_record(ColumnBatch(cols + [
+            Column("ts", KIND_INT64, np.arange(lo, hi, dtype=np.int64), ones),
+            # values constant within even combinations: unique() hits there
+            Column("v", KIND_INT64, np.where(vv, np.where(c % 2 == 0, c % 23, rng.integers(-50, 50, n)), 0), vv),
+            Column("b", KIND_BOOL, np.where(bv, rng.random(n) > 0.2, False), bv),
+            Column("f", KIND_FLOAT64, np.where(fv, rng.integers(-10**6, 10**6, n) / 1000.0, 0.0), fv),
+        ], n), sort=True)
+    return db
+
+
+@pytest.mark.parametrize("ordered", [False, True])
+@pytest.mark.parametrize("selection", ["sparse", "full"])
+@pytest.mark.parametrize("aggs", sorted(_ORDER_AGGS))
+@pytest.mark.parametrize("space", sorted(_ORDER_SPACES), ids=lambda s: f"{s[0]}-{s[1]}col")
+def test_dense_emission_order_matches_generic(space, aggs, selection, ordered):
+    """The dense tier's rows, in their order, equal the generic DAG's on
+    both routes, one and two group columns, every aggregation the tier
+    reduces, with a selection that leaves most codes empty (300 of 4,500
+    to 10,500 rows) or none, first-occurrence or key order."""
+    db = _order_db(space)
+    groups = lambda E: [E.Col(f"g{i}") for i in range(space[1])]
+    filt = (lambda E: E.Col("ts").lt(300)) if selection == "sparse" else None
+    make_q = agg(_ORDER_AGGS[aggs], groups, filt)
+    got = {}
+    for compiled in (True, False):
+        tracer = Tracer()
+        eng = PEngine(db.table_provider(), exec_options=POptions(
+            compiled_serving=compiled, ordered_aggregations=ordered, tracer=tracer))
+        out = []
+        make_q(eng, PE).execute(out.append)
+        got[compiled] = FZ.rows(out)
+        if compiled:
+            assert eng.last_serving_path == "dense", eng.last_fallback_reasons
+            (dense,) = [c for c in tracer.roots[0].children if c.name == "dense/execute"]
+            (parts,) = [c for c in dense.children if c.name == "dense/parts"]
+            assert parts.attributes["route"] == space[0]
+    assert got[True] == got[False]
+    n_codes = int(np.prod(_ORDER_SPACES[space]))
+    if selection == "full":
+        assert len(got[True]) == n_codes
+        # key order exactly when ordered: the case tells the two apart
+        keys = [tuple(v for _name, v in row[: space[1]]) for row in got[True]]
+        assert (keys == sorted(keys)) == ordered
+    else:
+        assert 0 < len(got[True]) <= 300 < n_codes // 2
 
 
 # ---------------------------------------------------------------------------

@@ -266,7 +266,8 @@ TIER_QUERIES = {
     "generic": lambda e: e.scan_table("t").project(PE.Col("value")).order_by("value"),
 }
 
-COUNTERS = ("planes_built_total", "programs_built_total", "scan_blocks_refiltered_total")
+COUNTERS = ("planes_built_total", "programs_built_total", "scan_blocks_refiltered_total",
+            "dense_device_order_total")
 
 
 def port_tree(span):
@@ -421,7 +422,7 @@ TIER_TREES = {'compiled': (('query/execute',
                              {'parts': 2, 'route': 'segment'},
                              [('planes/build', {'bytes': 12000, 'kind': 'remap'})]),
                             ('result/copy', {'bytes': 72000}),
-                            ('result/epilogue', {'rows': 3000})])]),
+                            ('result/epilogue', {'order': 'device', 'rows': 3000})])]),
                         ('query/execute',
                          [('plan/optimize', []),
                           ('compiled/lower', []),
@@ -494,8 +495,9 @@ TIER_COUNTERS = {
     "compiled_distinct": {"planes_built_total": 5, "programs_built_total": 1,
                           "queries_declined_compiled": 2, "queries_declined_compiled_join": 2,
                           "queries_declined_dense": 2, "queries_served_compiled_distinct": 2},
-    "dense": {"planes_built_total": 2, "queries_declined_compiled": 2,
-              "queries_declined_compiled_join": 2, "queries_served_dense": 2},
+    "dense": {"dense_device_order_total": 2, "planes_built_total": 2,
+              "queries_declined_compiled": 2, "queries_declined_compiled_join": 2,
+              "queries_served_dense": 2},
     "compiled_scan": {"planes_built_total": 6, "queries_declined_compiled": 2,
                       "queries_declined_compiled_distinct": 2, "queries_declined_compiled_join": 2,
                       "queries_declined_dense": 2, "queries_declined_schema_meta": 2,
@@ -535,6 +537,44 @@ def test_port_span_tree_of_each_tier(tier, monkeypatch):
     assert counters == TIER_COUNTERS[tier]
     # The same counters without a tracer: a registry alone counts.
     assert run_tier(tier, None, monkeypatch)[1] == counters
+
+
+def test_shuffle_route_orders_on_the_host(monkeypatch):
+    """The dense tier's shuffle route keeps its host emission order: no
+    ``dense_device_order_total`` and no ``order`` on its epilogue span,
+    with the same rows as the dense route over the same table."""
+    from frostdb_tpu_torch.parallel import mesh_exec as ME
+
+    rows = {}
+    for route in ("segment", "shuffle"):
+        if route == "shuffle":
+            # 3,000 stacks past the tier's code ceiling: the shuffle route
+            monkeypatch.setattr(ME.DenseLocalAggregate, "MAX_CODES", 2048)
+        tracer = Tracer()
+        out = []
+        db = ColumnStore(device="cpu").db("tr")
+        tier_table(db)
+        registry = PRegistry()
+        eng = PEngine(db.table_provider(), POptions(tracer=tracer, metrics=registry))
+        TIER_QUERIES["dense"](eng).execute(out.append)
+        assert eng.last_serving_path == "dense"
+        (root,) = tracer.roots
+        (dense,) = [c for c in root.children if c.name == "dense/execute"]
+        parts, epilogue = (
+            next(c for c in dense.children if c.name == name)
+            for name in ("dense/parts", "result/epilogue")
+        )
+        rows[route] = FZ.rows(out)
+        order = counted(registry).get("dense_device_order_total", 0)
+        assert parts.attributes["route"] == route
+        if route == "shuffle":
+            assert "order" not in epilogue.attributes
+            assert order == 0
+        else:
+            assert epilogue.attributes["order"] == "device"
+            assert order == 1
+    assert rows["shuffle"] == rows["segment"]
+    assert len(rows["shuffle"]) == 3000
 
 
 def test_reference_view_keeps_an_unlisted_span():
