@@ -58,6 +58,7 @@ the per-part fallback.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 from dataclasses import dataclass
@@ -1543,7 +1544,8 @@ class CompiledFilterAggregate:
                     span.attributes["structure"] = _structure_text(structure)
                 prog = _FUSED_CACHE[structure] = _build_fused_program(structure)
             count("programs_built_total", "fused programs built on a cache miss")
-        return _copy_to_host(prog(*self._fused_args(sp, plans)))
+        minmax = tuple(p.column for p in plans if p.need_minmax or p.need_and)
+        return _copy_to_host(prog(*self._fused_args(sp, plans), minmax_columns=minmax))
 
     # ------------------------------------------------------------------
 
@@ -1866,7 +1868,7 @@ def _build_fused_program(structure):
 
     gshape, clauses, vps, num_codes, fastcmp = structure
 
-    def fn(*xs):
+    def fn(*xs, minmax_columns=()):
         i = 0
 
         def eval_leaf(leaf):
@@ -2064,6 +2066,7 @@ def _build_fused_program(structure):
                 sums.setdefault(vi, []).append(s)
 
         def mm(vals, sel2):
+            count("minmax_passes_total", "K3 min/max passes of the compiled tier's fused programs")
             return AK.group_min_max(
                 codes,
                 vals.to(torch.int32).contiguous(),
@@ -2072,40 +2075,47 @@ def _build_fused_program(structure):
             )
 
         blob = [counts]
-        for vi, (need_sum, need_mm, wide, *_rest, uniq, andf) in enumerate(
-            vps
-        ):
-            if need_sum:
-                blob.extend(sums[vi])
-            if uniq:
-                blob.append(usums[vi])
-            if andf:
-                # and() = per-group min of (valid ? v : 1); nulls are
-                # true-neutral (aggregate.go:798)
-                (v01,) = [v for v, _d in value_planes[vi]]
-                andp = torch.where(vvalid_planes[vi] == 1, v01, 1)
-                mn, _mx = mm(andp, sel)
-                blob.append(mn.to(torch.int64))
-            if not need_mm:
-                continue
-            planes = [v for v, _d in value_planes[vi]]
-            if not wide:
-                (vals,) = planes
-                mn, mx = mm(vals, sel)
-                blob.append(mn.to(torch.int64))
-                blob.append(mx.to(torch.int64))
-                continue
-            # Two-plane lexicographic min/max: pass 1 reduces the hi plane;
-            # passes 2/3 reduce the lo plane over just the rows whose hi
-            # equals their code's extreme (one [K]-gather per row).
-            lo, hi = planes
-            mn_hi, mx_hi = mm(hi, sel)
-            sel_min = sel * (hi == _take_clip(mn_hi, codes)).to(torch.int32)
-            mn_lo, _ = mm(lo, sel_min)
-            sel_max = sel * (hi == _take_clip(mx_hi, codes)).to(torch.int32)
-            _, mx_lo = mm(lo, sel_max)
-            blob.append((mn_hi.to(torch.int64) << _LO_BITS) + mn_lo.to(torch.int64))
-            blob.append((mx_hi.to(torch.int64) << _LO_BITS) + mx_lo.to(torch.int64))
+        # The min/max passes (and and()'s, a min) under one span.
+        minmax = (
+            _span("compiled/minmax", columns=list(minmax_columns), codes=num_codes)
+            if any(vp_t[1] or vp_t[8] for vp_t in vps)
+            else contextlib.nullcontext()
+        )
+        with minmax:
+            for vi, (need_sum, need_mm, wide, *_rest, uniq, andf) in enumerate(
+                vps
+            ):
+                if need_sum:
+                    blob.extend(sums[vi])
+                if uniq:
+                    blob.append(usums[vi])
+                if andf:
+                    # and() = per-group min of (valid ? v : 1); nulls are
+                    # true-neutral (aggregate.go:798)
+                    (v01,) = [v for v, _d in value_planes[vi]]
+                    andp = torch.where(vvalid_planes[vi] == 1, v01, 1)
+                    mn, _mx = mm(andp, sel)
+                    blob.append(mn.to(torch.int64))
+                if not need_mm:
+                    continue
+                planes = [v for v, _d in value_planes[vi]]
+                if not wide:
+                    (vals,) = planes
+                    mn, mx = mm(vals, sel)
+                    blob.append(mn.to(torch.int64))
+                    blob.append(mx.to(torch.int64))
+                    continue
+                # Two-plane lexicographic min/max: pass 1 reduces the hi plane;
+                # passes 2/3 reduce the lo plane over just the rows whose hi
+                # equals their code's extreme (one [K]-gather per row).
+                lo, hi = planes
+                mn_hi, mx_hi = mm(hi, sel)
+                sel_min = sel * (hi == _take_clip(mn_hi, codes)).to(torch.int32)
+                mn_lo, _ = mm(lo, sel_min)
+                sel_max = sel * (hi == _take_clip(mx_hi, codes)).to(torch.int32)
+                _, mx_lo = mm(lo, sel_max)
+                blob.append((mn_hi.to(torch.int64) << _LO_BITS) + mn_lo.to(torch.int64))
+                blob.append((mx_hi.to(torch.int64) << _LO_BITS) + mx_lo.to(torch.int64))
         blob.append(first.to(torch.int64))
         return torch.cat(blob)
 

@@ -92,6 +92,12 @@ class DeviceBatch:
         self._cols[name] = dc
         return dc
 
+    def upload(self) -> None:
+        """Every column on the device now (``column`` uploads a column on
+        its first use)."""
+        for hc in self.host.columns:
+            self.column(hc.name)
+
     def _padded(self, hc: Column) -> tuple:
         """(values, validity) on the host, padded to ``n_pad`` rows."""
         host = _host_values(hc.kind, hc.values)

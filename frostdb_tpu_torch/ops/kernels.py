@@ -493,22 +493,29 @@ def sorted_group_reduce(codes, sel, rows, vals, num_codes: int, ops: tuple):
     return counts, first, tuple(outs)
 
 
+# Unselected rows reduce into this many extra segments, row by row, so that
+# their atomics on the card do not queue on one address (the time a query
+# spent there grew with the unselected rows of the parts it read).
+_DUMP_SEGMENTS = 1024
+
+
 def dense_group_reduce(codes, vals, sel, num_codes: int, op: str):
     """Per-code reduction into a dense [num_codes] table: unselected rows
-    reduce into one extra segment that is cut off, so no identity competes
+    reduce into extra segments that are cut off, so no identity competes
     with a selected value; empty codes hold 0 (sum, count) or the dtype's
     extreme (min: its maximum, max: its minimum)."""
-    c = torch.where(sel, codes.to(torch.int64), num_codes)
+    rows = torch.arange(codes.shape[0], device=codes.device)
+    dump = num_codes + torch.bitwise_and(rows, _DUMP_SEGMENTS - 1)
+    c = torch.where(sel, codes.to(torch.int64), dump)
+    n = num_codes + _DUMP_SEGMENTS
     if op == AGG_COUNT:
-        return _segment(sel.to(torch.int64), c, num_codes + 1, "sum")[:num_codes]
+        return _segment(sel.to(torch.int64), c, n, "sum")[:num_codes]
     if op == AGG_SUM:
-        return _segment(
-            torch.where(sel, vals, torch.zeros_like(vals)), c, num_codes + 1, "sum"
-        )[:num_codes]
+        return _segment(torch.where(sel, vals, torch.zeros_like(vals)), c, n, "sum")[:num_codes]
     if op == AGG_MIN:
-        return _segment(vals, c, num_codes + 1, "amin")[:num_codes]
+        return _segment(vals, c, n, "amin")[:num_codes]
     if op == AGG_MAX:
-        return _segment(vals, c, num_codes + 1, "amax")[:num_codes]
+        return _segment(vals, c, n, "amax")[:num_codes]
     raise ValueError(op)
 
 

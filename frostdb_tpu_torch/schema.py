@@ -361,6 +361,38 @@ def sample_definition_with_float() -> SchemaDef:
     )
 
 
+# The ten cpu fields of the Time Series Benchmark Suite's devops use case
+# (github.com/timescale/tsbs, cmd/tsbs_generate_data, cpu-only).
+TSBS_CPU_FIELDS = (
+    "usage_user", "usage_system", "usage_idle", "usage_nice", "usage_iowait",
+    "usage_irq", "usage_softirq", "usage_steal", "usage_guest", "usage_guest_nice",
+)
+
+
+def tsbs_cpu_definition() -> SchemaDef:
+    """TSBS devops cpu rows: the host's tags as dynamic ``labels``, the
+    reading's timestamp and the ten cpu fields, sorted by labels, then
+    time."""
+    return SchemaDef(
+        name="cpu",
+        columns=(
+            ColumnDef(
+                "labels",
+                StorageLayout(
+                    TYPE_STRING, nullable=True, encoding=ENCODING_RLE_DICTIONARY
+                ),
+                dynamic=True,
+            ),
+            ColumnDef("timestamp", StorageLayout(TYPE_INT64)),
+            *(ColumnDef(f, StorageLayout(TYPE_INT64)) for f in TSBS_CPU_FIELDS),
+        ),
+        sorting_columns=(
+            SortingColumnDef("labels", "asc", nulls_first=True),
+            SortingColumnDef("timestamp", "asc"),
+        ),
+    )
+
+
 def prehashed_sample_definition() -> SchemaDef:
     base = sample_definition()
     cols = []

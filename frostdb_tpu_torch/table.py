@@ -488,7 +488,8 @@ class Table:
     def sync(self) -> None:
         """Wait for background work to settle: pending block persists and
         in-flight LSM compactions (reference: table.go Sync). Stranded
-        persists get one retry first."""
+        persists get one retry first. Then every in-memory part's device
+        mirror holds all its columns (the port's own step)."""
         with self._rot_lock:
             if self._rot_stranded:
                 self._rot_queue = self._rot_stranded + self._rot_queue
@@ -503,6 +504,10 @@ class Table:
             blocks = [self.active_block] + list(self.pending_blocks)
         for b in blocks:
             b.index.drain_compactions()
+            # The settled parts on the device whole, so that no query pays
+            # a part's first upload.
+            for p in b.index.snapshot():
+                p.device().upload()
 
     def join_background(self, timeout: float = 5.0) -> None:
         """Crash-simulation support (DST): bounded, error-swallowing wait

@@ -34,13 +34,15 @@ import torch
 clock_ns = time.time_ns
 
 # Spans only the port emits: each tier's lowering, and the work inside the
-# tiers (cache misses, the group remap, the dense tier's part loop, the
-# result's copy and host epilogue, compiled_scan's block loop).
+# tiers (cache misses, the group remap, the dense tier's part loop, a fused
+# program's min/max passes, the result's copy and host epilogue,
+# compiled_scan's block loop).
 PORT_ONLY_SPANS = (
     "compiled/lower", "compiled_join/lower", "dense/lower",
     "compiled_distinct/lower", "schema_meta/lower", "compiled_scan/lower",
     "mesh/lower", "planes/build", "program/build", "groups/remap",
-    "dense/parts", "result/copy", "result/epilogue", "scan/blocks",
+    "dense/parts", "compiled/minmax", "result/copy", "result/epilogue",
+    "scan/blocks",
 )
 # The port's tier spans, each under the name the reference's tier opens.
 REFERENCE_TIER_SPAN = {
