@@ -10,7 +10,10 @@ kernels also the code layouts they are designed for: sorted runs across
 the vector, warp, block and grid-stride boundaries, one code, two random
 codes, out-of-range codes, ragged lengths, 2048 codes, unaligned planes,
 the count-only pass, int32-extreme values, negative selection entries and
-min/max's second pass over a wide column). Then drives six paths, each
+min/max's second pass over a wide column; for the dense segment reduction
+K up to 4,096, runs of 1-16,380 rows, int64 sums that wrap, live counts
+below the padded length and the 6- and 7-part layouts of a 67M-row
+table). Then drives six paths, each
 with the launch counts set to 0 just before it and read just after:
 
 1. the aggregate shapes (slice 1): the engine's hot filter + group-by
@@ -37,17 +40,18 @@ with the launch counts set to 0 just before it and read just after:
    its segment route and a (label, stacktrace) group-by of 8,388,608 codes
    on its shuffle route, each checked against numpy at full width and
    against the generic DAG on a 2-part table, timed and profiled; no
-   K1-K6 kernel may run here (the dense tier is torch ops);
+   K1-K6 kernel may run here (the dense tier is torch ops and, on the
+   segment route, dense_segment_sum_count, which must run);
 5. the mesh shapes (slice 7): the five aggregate shapes, dense_stack,
    dense_shuffle, an exact float sum, a float min/max and join_rows under
    ExecOptions(mesh=...) at 1 and at 4 shards (the 4 shards all on the one
    card), each served by the mesh tier (join_rows by the generic HashJoin,
    its pairs expanded by the distributed join) and equal, in order, to the
    same shape on its local tier; no K1-K6 kernel may run here (the mesh
-   tier is torch ops); dense_shuffle at 4 shards must move pairs across
-   shards; then the distributed modules (filter-aggregate, distinct,
-   shuffle, join) against numpy, timings and a profile at each shard
-   count, the sharded upload's bytes and seconds;
+   tier is torch ops and dense_segment_sum_count); dense_shuffle at 4
+   shards must move pairs across shards; then the distributed modules
+   (filter-aggregate, distinct, shuffle, join) against numpy, timings and
+   a profile at each shard count, the sharded upload's bytes and seconds;
 6. the kernel bench (bench.py's data): 8 datasets of 2^25 rows through the
    fused `ts >= literal` sum/count kernel, checked exactly against numpy.
 
@@ -420,12 +424,86 @@ def layout_edge_cases(AK, dev, errs) -> None:
     log(f"kernel layout cases: {checked} sum/count and min/max calls over {len(cases)} input sets exact")
 
 
+def dense_segment_check(AK, what, codes, sel, values, n, row_base, k) -> None:
+    """One dense_segment_sum_count call, and its count-only call, against
+    the plain version, exactly."""
+    import torch
+
+    for vals in (values, None):
+        got = AK.dense_segment_sum_count(codes, sel, vals, n, row_base, k)
+        torch.cuda.synchronize()
+        want = AK.dense_segment_sum_count_plain(codes, sel, vals, n, row_base, k)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            bad = [i for i, (g, w) in enumerate(zip(got, want)) if not torch.equal(g, w)]
+            raise AssertionError(
+                f"dense_segment_sum_count on {what}, n={n}, row_base={row_base}, K={k}, "
+                f"count only {vals is None}: outputs {bad} (counts, first, sums) differ"
+            )
+
+
+def dense_segment_edge_cases(AK, dev) -> None:
+    """The dense segment reduction against its plain version, exactly: K
+    1, 2,049 and 4,096 (codes up to K - 1) over runs of 1, 7 and 16,380
+    rows, every row, 2% of the rows and no row selected, int64 values near
+    +-2^63 whose sums wrap, row_base 0 and a shard's ``shard * m``, a live
+    count 1,001 rows short of the padded length (the padding selected), n
+    not a multiple of the 4-row vector and below one vector, planes at a
+    one-row offset (scalar loads); then the (node, minute) codes of a
+    67,092,480-row table split into 6 and into 7 parts, as ``sync`` leaves
+    range_wide's table, each part a call with a 45-minute selection."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(700)
+    pad = 3 * 16380 + 13
+    checked = 0
+    for k in (1, 2049, 4096):
+        for run in (1, 7, 16380):
+            per_run = torch.randint(0, k, (-(-pad // run),), generator=g, device=dev, dtype=torch.int32)
+            per_run[-1] = k - 1
+            codes = per_run.repeat_interleave(run)[:pad].contiguous()
+            vals = torch.randint(2**62, 2**63 - 1, (pad,), generator=g, device=dev, dtype=torch.int64)
+            vals = torch.where(torch.rand(pad, generator=g, device=dev) < 0.5, -vals, vals)
+            for selection in ("all", "sparse", "none"):
+                sel = {
+                    "all": torch.ones(pad, dtype=torch.bool, device=dev),
+                    "none": torch.zeros(pad, dtype=torch.bool, device=dev),
+                    "sparse": torch.rand(pad, generator=g, device=dev) < 0.02,
+                }[selection]
+                what = f"runs:{run}, {selection} selected"
+                for n, row_base in ((pad, 0), (pad - 1001, 3 * pad), (pad - 2, 0), (3, 5), (1, 0)):
+                    dense_segment_check(AK, what, codes, sel, vals, n, row_base, k)
+                    checked += 2
+                if selection == "sparse":
+                    x = [t[1:] for t in (codes, sel, vals)]
+                    dense_segment_check(AK, what + ", one-row offset", *x, pad - 1001, pad, k)
+                    checked += 2
+    rows, runs = 67_092_480, 16_380
+    node_minute = torch.arange(rows // runs, dtype=torch.int32, device=dev).repeat_interleave(runs)
+    minute = node_minute % 64
+    vals = torch.randint(1, 3, (rows,), generator=g, device=dev, dtype=torch.int64)
+    for n_parts in (6, 7):
+        bounds = [rows * i // n_parts for i in range(n_parts + 1)]
+        for lo, hi in zip(bounds, bounds[1:]):
+            n = hi - lo
+            m = -(-n // 8192) * 8192  # padded as a part's planes are
+            codes = torch.zeros(m, dtype=torch.int32, device=dev)
+            codes[:n] = node_minute[lo:hi]
+            sel = torch.ones(m, dtype=torch.bool, device=dev)
+            sel[:n] = minute[lo:hi] >= 19
+            v = torch.zeros(m, dtype=torch.int64, device=dev)
+            v[:n] = vals[lo:hi]
+            dense_segment_check(AK, f"{n_parts}-part layout, rows {lo}-{hi}", codes, sel, v, n, 0, 4096)
+            checked += 2
+    log(f"dense segment cases: {checked} dense_segment_sum_count calls exact")
+
+
 def kernel_phase(AK, dev, main_rows):
     import torch
 
     errs = {k: 0 for k in KERNELS}
     new_kernel_edge_cases(AK, dev, errs)
     layout_edge_cases(AK, dev, errs)
+    dense_segment_edge_cases(AK, dev)
     # Edge cases: code spaces, every row filtered out, a ragged length,
     # values near 2^31, 3-clause bands with a dict-style equality.
     cases = [
@@ -1697,14 +1775,23 @@ def dense_route_probe():
         cls._program, cls._execute_shuffle = program, shuffle
 
 
-@contextlib.contextmanager
-def capture_reductions():
-    """Record the arguments of every call of the dense tier's two reductions
-    (ops/kernels.py) while the block runs: {function name: [args]}."""
+def _reduction_module(name):
+    """The module of a dense-tier reduction: the segment route's kernel
+    (ops/agg_kernels.py) or one of ops/kernels.py's two."""
+    from frostdb_tpu_torch.ops import agg_kernels as AK
     from frostdb_tpu_torch.ops import kernels as K
 
-    seen: dict = {"sorted_group_reduce": [], "dense_group_reduce": []}
-    saved = {name: getattr(K, name) for name in seen}
+    return AK if name == "dense_segment_sum_count" else K
+
+
+@contextlib.contextmanager
+def capture_reductions():
+    """Record the arguments of every call of the dense tier's reductions
+    (ops/kernels.py's two, the segment route's kernel) while the block
+    runs: {function name: [args]}."""
+    seen: dict = {"sorted_group_reduce": [], "dense_group_reduce": [],
+                  "dense_segment_sum_count": []}
+    saved = {name: getattr(_reduction_module(name), name) for name in seen}
 
     def recorder(name, fn):
         def call(*args):
@@ -1714,12 +1801,12 @@ def capture_reductions():
         return call
 
     for name, fn in saved.items():
-        setattr(K, name, recorder(name, fn))
+        setattr(_reduction_module(name), name, recorder(name, fn))
     try:
         yield seen
     finally:
         for name, fn in saved.items():
-            setattr(K, name, fn)
+            setattr(_reduction_module(name), name, fn)
 
 
 def reduction_times(shape, captured) -> None:
@@ -1727,12 +1814,10 @@ def reduction_times(shape, captured) -> None:
     per function, all of the query's calls in a chain and alone, beside the
     least time the card needs to read their inputs and write their outputs
     once."""
-    from frostdb_tpu_torch.ops import kernels as K
-
     for fname, calls in captured.items():
         if not calls:
             continue
-        fn = getattr(K, fname)
+        fn = getattr(_reduction_module(fname), fname)
 
         def run_all(fn=fn, calls=calls):
             for a in calls:
@@ -1888,8 +1973,10 @@ def dense_phase(AK, db, engine, generic, n_parts):
             results.append((name, table, route, out, taken[0][1]))
     launches = dict(AK.LAUNCHES)
     log(f"main path launches (dense shapes): {json.dumps(launches)}")
-    if any(launches.values()):
+    if any(n for k, n in launches.items() if k in KERNELS):
         raise AssertionError("a K1-K6 kernel was launched on the dense shapes")
+    if not launches["dense_segment_sum_count"]:
+        raise AssertionError("the segment route launched no dense_segment_sum_count")
 
     on_small = {name: make_q for name, _t, make_q, _r in dense_shapes(E, 0, "stacks2", "t2")}
     for name, table, route, out, k in results:
@@ -2152,7 +2239,7 @@ def mesh_phase(AK, db, engine, smi, device="cuda"):
         )
     launches = dict(AK.LAUNCHES)
     log(f"main path launches (mesh shapes): {json.dumps(launches)}")
-    if any(launches.values()):
+    if any(n for k, n in launches.items() if k in KERNELS):
         raise AssertionError("a K1-K6 kernel was launched on the mesh shapes")
     for name, _make_q, tier in mesh_shapes(E, 0):
         want, local_tier = local[name]
@@ -3367,7 +3454,7 @@ FUZZ_SCALE = 1024
 # tier; 1007, 1009 and 1011 launch K2 and K3.
 FUZZ_SCALED_SEEDS = {"aggregates": 12, "scan and epilogue": 2, "joins": 2, "int-key joins": 2}
 FUZZ_KERNELS = ("fused_band_group_sum_count", "group_sum_count", "group_min_max",
-                "fused_cmp_group_sum_count", "block_compact")
+                "fused_cmp_group_sum_count", "block_compact", "dense_segment_sum_count")
 FUZZ_TIERS = ("compiled", "compiled_scan", "compiled_join", "mesh")
 
 

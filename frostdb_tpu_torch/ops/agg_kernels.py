@@ -2,8 +2,9 @@
 wrappers, plain PyTorch versions and launch counters.
 
 The counterpart of ``frostdb_tpu/ops/pallas_agg.py``. Sources:
-``csrc/agg.cu`` (the aggregation kernels) and ``csrc/compact.cu`` (block
-compaction), each built for ``sm_90a`` with its own ``nvcc`` (all started
+``csrc/agg.cu`` (the aggregation kernels), ``csrc/compact.cu`` (block
+compaction) and ``csrc/dense.cu`` (the dense tier's segment reduction),
+each built for ``sm_90a`` with its own ``nvcc`` (all started
 together) into a shared library with a plain C interface at first use
 (under the checkout's ``build/kernels/``, keyed by a hash of the source and
 flags), and loaded with ``ctypes``. Importing this module builds and loads
@@ -17,13 +18,16 @@ nothing.
 | ``group_min_max``             | ``pallas_group_min_max``               |
 | ``filter_group_sum_count``    | ``pallas_filter_group_sum_count``      |
 | ``block_compact``             | ``pallas_block_compact``               |
+| ``dense_segment_sum_count``   | none (XLA's ``segment_sum``)           |
 
 Bound on the card: memory bandwidth. The sum/count kernels read one
 predicate plane per clause (4 B/row, plus 1 B/row for the int8 base plane)
 and the code and value of each selected row (no value with ``values=None``,
 the count-only pass); min/max reads the selection (4 B/row) and the code
 and value of each selected row; block compaction reads the selection (4
-B/row) and writes ``n_blocks x (1 + capb)`` int32. Their arithmetic is a
+B/row) and writes ``n_blocks x (1 + capb)`` int32; the dense segment
+reduction reads the code, the selection byte and the int64 value of each
+live row (13 B/row). Their arithmetic is a
 handful of integer ops per row, far below the card's rate, so the bound is
 bytes / 3.35 TB/s. The sum/count and min/max kernels are one template:
 each plane is read once in 16-byte vectors, the predicate evaluated in
@@ -58,8 +62,13 @@ from typing import Optional, Sequence
 import torch
 
 from . import fused
+from . import kernels as K
 
 MAX_CODES = 2048
+# The dense segment reduction's code limit (the segment route's,
+# parallel/mesh_exec._SORTED_THRESHOLD).
+DENSE_MAX_CODES = 4096
+_I64_MAX = 2**63 - 1
 _I32_MIN = -(2**31)
 _I32_MAX = 2**31 - 1
 
@@ -75,6 +84,7 @@ LAUNCHES: dict[str, int] = {
     "group_min_max": 0,
     "filter_group_sum_count": 0,
     "block_compact": 0,
+    "dense_segment_sum_count": 0,
 }
 TEMPLATE_LAUNCHES: dict[str, int] = {}
 _launch_lock = threading.Lock()
@@ -107,6 +117,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {
     "agg": os.path.join(_PKG, "csrc", "agg.cu"),
     "compact": os.path.join(_PKG, "csrc", "compact.cu"),
+    "dense": os.path.join(_PKG, "csrc", "dense.cu"),
 }
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = (
@@ -188,6 +199,7 @@ def _load() -> types.SimpleNamespace:
             paths = build()
             agg = ctypes.CDLL(paths["agg"])
             compact = ctypes.CDLL(paths["compact"])
+            dense = ctypes.CDLL(paths["dense"])
             p, i = ctypes.c_void_p, ctypes.c_int
             ll, u = ctypes.c_longlong, ctypes.c_uint
             agg.fdb_group_sum_count.argtypes = (
@@ -202,11 +214,16 @@ def _load() -> types.SimpleNamespace:
             agg.fdb_filter_group_sum_count.restype = i
             compact.fdb_block_compact.argtypes = [p, ll, i, p, p, p]
             compact.fdb_block_compact.restype = i
+            dense.fdb_dense_segment_sum_count.argtypes = (
+                [p] * 3 + [ll, ll, i] + [p] * 3 + [i, p]
+            )
+            dense.fdb_dense_segment_sum_count.restype = i
             _lib = types.SimpleNamespace(
                 fdb_group_sum_count=agg.fdb_group_sum_count,
                 fdb_group_min_max=agg.fdb_group_min_max,
                 fdb_filter_group_sum_count=agg.fdb_filter_group_sum_count,
                 fdb_block_compact=compact.fdb_block_compact,
+                fdb_dense_segment_sum_count=dense.fdb_dense_segment_sum_count,
             )
     return _lib
 
@@ -243,6 +260,13 @@ def _value_plane(values) -> list:
 def _check_codes(num_codes: int) -> None:
     if not 1 <= int(num_codes) <= MAX_CODES:
         raise ValueError(f"num_codes must be in [1, {MAX_CODES}], got {num_codes}")
+
+
+def _check_dense_codes(num_codes: int) -> None:
+    if not 1 <= int(num_codes) <= DENSE_MAX_CODES:
+        raise ValueError(
+            f"num_codes must be in [1, {DENSE_MAX_CODES}], got {num_codes}"
+        )
 
 
 def _check_digits(num_digits: int) -> None:
@@ -350,6 +374,21 @@ def block_compact_plain(sel, capb):
     idx = torch.full((n_blocks * capb,), -1, dtype=torch.int32, device=sel.device)
     idx[(blk * capb + rank)[keep]] = off.expand(n_blocks, -1)[keep]
     return bc, idx.reshape(n_blocks, capb)
+
+
+def dense_segment_sum_count_plain(codes, sel, values, n, row_base, num_codes):
+    """The dense tier's segment reduction as it was before its kernel: a
+    ``kernels.dense_group_reduce`` each for the count, the first selected
+    row (``row_base`` + its index) and the sum, over the first ``n`` rows."""
+    local = torch.arange(codes.shape[0], device=codes.device)
+    s = sel & (local < int(n))
+    counts = K.dense_group_reduce(codes, None, s, num_codes, K.AGG_COUNT)
+    first = K.dense_group_reduce(codes, local + int(row_base), s, num_codes, K.AGG_MIN)
+    if values is None:
+        sums = torch.zeros(num_codes, dtype=torch.int64, device=codes.device)
+    else:
+        sums = K.dense_group_reduce(codes, values, s, num_codes, K.AGG_SUM)
+    return counts, first, sums
 
 
 # ---------------------------------------------------------------------------
@@ -595,3 +634,47 @@ def block_compact(sel, capb: int):
         raise RuntimeError(f"block_compact kernel launch failed: cuda error {err}")
     count_launch("block_compact")
     return bc, idx
+
+
+def dense_segment_sum_count(codes, sel, values, n: int, row_base: int, num_codes: int):
+    """Exact (counts[K], first[K], sums[K]) int64 over the first ``n`` rows
+    where the bool ``sel`` holds: ``first`` is ``row_base`` plus the first
+    selected row per code (INT64_MAX when absent), ``sums`` the int64
+    ``values`` added modulo 2^64. codes: int32; sel: bool; values: int64
+    or None (counts only, the sums are 0); one contiguous flat shape. Rows
+    at or past ``n`` are not read; selected codes lie in [0, num_codes),
+    num_codes <= 4,096."""
+    _check_planes(
+        [("codes", codes, torch.int32), ("sel", sel, torch.bool)]
+        + ([] if values is None else [("values", values, torch.int64)])
+    )
+    if codes.dim() != 1:
+        raise ValueError("dense_segment_sum_count takes flat planes")
+    _check_dense_codes(num_codes)
+    n = int(n)
+    if not 0 <= n <= codes.numel():
+        raise ValueError(f"n must be in [0, {codes.numel()}], got {n}")
+    if codes.device.type == "cpu":
+        return dense_segment_sum_count_plain(codes, sel, values, n, row_base, num_codes)
+    dev = codes.device
+    counts = torch.zeros(num_codes, dtype=torch.int64, device=dev)
+    first = torch.full((num_codes,), _I64_MAX, dtype=torch.int64, device=dev)
+    sums = torch.zeros(num_codes, dtype=torch.int64, device=dev)
+    if n == 0:
+        return counts, first, sums
+    lib = _load()
+    with torch.cuda.device(dev):
+        num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        err = lib.fdb_dense_segment_sum_count(
+            codes.data_ptr(), sel.data_ptr(),
+            values.data_ptr() if values is not None else 0,
+            n, int(row_base), num_codes,
+            counts.data_ptr(), first.data_ptr(), sums.data_ptr(), num_sms,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"dense_segment_sum_count kernel launch failed: cuda error {err}"
+        )
+    count_launch("dense_segment_sum_count")
+    return counts, first, sums

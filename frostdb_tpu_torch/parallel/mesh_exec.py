@@ -72,6 +72,7 @@ from ..compiled import (
     emit_output,
 )
 from ..device import ShardedTensor
+from ..ops import agg_kernels as AK
 from ..ops import kernels as K
 from ..query import expr as E
 from ..tracing import annotate as _annotate, count, span as _span
@@ -201,6 +202,39 @@ def _unpack_inputs(xs, gshape, clause_sigs, ops, shard: int = 0):
         vops.append(func)
         vfmm.append(fmm)
     return i, gcodes, sel, rows, vlist, vops, vfmm
+
+
+def _segment_reduce(n, shard: int, c32, sel, vlist, vops, vfmm, num_codes: int):
+    """One shard's segment-route reduction: (counts, first, per-op
+    partials). The counts, the first rows and the first int64 sum come from
+    one ``dense_segment_sum_count`` pass over the shard's live rows, each
+    further sum plane from one more; min/max/and stay on
+    ``kernels.dense_group_reduce``; fmm partials are left to the caller
+    (None)."""
+    m = c32.shape[0]
+    row_base = shard * m
+    live = min(max(int(n) - row_base, 0), m)
+    c32 = c32.to(torch.int32).contiguous()
+    sums = [
+        i
+        for i, (func, fmm) in enumerate(zip(vops, vfmm))
+        if func == K.AGG_SUM and not fmm
+    ]
+    partials = [None] * len(vlist)
+    values = vlist[sums[0]].contiguous() if sums else None
+    counts, first, s0 = AK.dense_segment_sum_count(
+        c32, sel, values, live, row_base, num_codes
+    )
+    if sums:
+        partials[sums[0]] = s0
+    for i in sums[1:]:
+        partials[i] = AK.dense_segment_sum_count(
+            c32, sel, vlist[i].contiguous(), live, row_base, num_codes
+        )[2]
+    for i, (v, func, fmm) in enumerate(zip(vlist, vops, vfmm)):
+        if func != K.AGG_SUM and not fmm:
+            partials[i] = K.dense_group_reduce(c32, v, sel, num_codes, func)
+    return counts, first, partials
 
 
 def _sparse_pairs(gcodes, sel, rows, vlist, vops, num_codes: int) -> list:
@@ -404,18 +438,9 @@ class MeshFilterAggregate(CompiledFilterAggregate):
                             counts > 0, partials[vi2], ident
                         )
             else:
-                counts = K.dense_group_reduce(
-                    c32, None, sel, num_codes, K.AGG_COUNT
+                counts, first, partials = _segment_reduce(
+                    xs[0], s, c32, sel, vlist, vops, vfmm, num_codes
                 )
-                first = K.dense_group_reduce(
-                    c32, rows, sel, num_codes, K.AGG_MIN
-                )
-                partials = [
-                    None
-                    if fmm
-                    else K.dense_group_reduce(c32, v, sel, num_codes, func)
-                    for v, func, fmm in zip(vlist, vops, vfmm)
-                ]
             return c32, sel, vlist, vops, counts, first, partials
 
         def fmm_reduce(shards, vi, func):
@@ -447,6 +472,12 @@ class MeshFilterAggregate(CompiledFilterAggregate):
                 local(self._shard_args(args, s), s)
                 for s in C.axis_index(self.n_shards)
             ]
+            if not sorted_path:
+                count(
+                    "dense_segment_fused_total",
+                    "dense-tier parts whose counts, first rows and sums took "
+                    "one dense_segment_sum_count pass",
+                )
             vops = shards[0][3]
             counts = C.psum([sh[4] for sh in shards])[0]
             first = C.pmin([sh[5] for sh in shards])[0]

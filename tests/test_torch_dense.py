@@ -553,6 +553,66 @@ def test_dense_group_reduce_all_int64_min_group():
     assert got.tolist() == np.asarray(ref).tolist() == [lo, lo, 7, lo]
 
 
+# Padded rows of the segment-reduction cases: three runs of 16,380 rows and
+# a ragged end; the live rows stop 1,001 short of it.
+_SEG_PAD = 3 * 16380 + 13
+_SEG_LIVE = _SEG_PAD - 1001
+
+
+@pytest.mark.parametrize("selection", ["all", "sparse", "none"])
+@pytest.mark.parametrize("run", [1, 7, 16380])
+@pytest.mark.parametrize("k", [1, 2049, 4096])
+def test_dense_segment_sum_count_plain_matches_dense_group_reduce(k, run, selection):
+    """The segment route's one-pass reduction (plain version) against the
+    three dense_group_reduce calls the route made before it, the port's and
+    the JAX package's: codes in runs of ``run`` rows (the top code K - 1
+    included), int64 values near +-2^63 whose sums wrap, the first row
+    offset by ``row_base`` (0, and a shard's ``shard * m``), selected rows
+    past the live count ``n`` ignored, and a count-only call."""
+    from frostdb_tpu_torch.ops import agg_kernels as AK
+
+    jnp, JK = _jnp()
+    rng = np.random.default_rng([k, run, len(selection)])
+    per_run = rng.integers(0, k, -(-_SEG_PAD // run)).astype(np.int32)
+    per_run[-1] = k - 1
+    codes = np.repeat(per_run, run)[:_SEG_PAD]
+    sel = {"all": np.ones(_SEG_PAD, bool), "none": np.zeros(_SEG_PAD, bool),
+           "sparse": rng.random(_SEG_PAD) < 0.02}[selection]
+    vals = rng.integers(2**62, 2**63 - 1, _SEG_PAD, dtype=np.int64)
+    vals[rng.random(_SEG_PAD) < 0.5] *= -1
+    live = np.arange(_SEG_PAD) < _SEG_LIVE
+    for row_base in (0, 3 * _SEG_PAD):
+        rows = row_base + np.arange(_SEG_PAD, dtype=np.int64)
+        c, s, v = (torch.from_numpy(x) for x in (codes, sel, vals))
+        got = AK.dense_segment_sum_count_plain(c, s, v, _SEG_LIVE, row_base, k)
+        # the route's calls before the one-pass reduction: the live rows
+        # folded into the selection, first as the min of the rows
+        s_live = torch.from_numpy(sel & live)
+        want = (
+            PK.dense_group_reduce(c, None, s_live, k, PK.AGG_COUNT),
+            PK.dense_group_reduce(c, torch.from_numpy(rows), s_live, k, PK.AGG_MIN),
+            PK.dense_group_reduce(c, v, s_live, k, PK.AGG_SUM),
+        )
+        jargs = (jnp.asarray(codes), jnp.asarray(sel & live))
+        ref = (
+            JK.dense_group_reduce(jargs[0], jnp.asarray(vals), jargs[1], k, "count"),
+            JK.dense_group_reduce(jargs[0], jnp.asarray(rows), jargs[1], k, "min"),
+            JK.dense_group_reduce(jargs[0], jnp.asarray(vals), jargs[1], k, "sum"),
+        )
+        for g, w, r in zip(got, want, ref):
+            assert g.dtype == torch.int64 and g.shape == (k,)
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+        counts, first, sums = (g.numpy() for g in got)
+        assert counts.sum() == (sel & live).sum()
+        assert (first[counts == 0] == np.iinfo(np.int64).max).all()
+        assert (sums[counts == 0] == 0).all()
+        only = AK.dense_segment_sum_count_plain(c, s, None, _SEG_LIVE, row_base, k)
+        np.testing.assert_array_equal(only[0].numpy(), counts)
+        np.testing.assert_array_equal(only[1].numpy(), first)
+        assert not only[2].any()
+
+
 # ---------------------------------------------------------------------------
 # Memory limits on the shuffle route
 

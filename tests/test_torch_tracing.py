@@ -267,7 +267,7 @@ TIER_QUERIES = {
 }
 
 COUNTERS = ("planes_built_total", "programs_built_total", "scan_blocks_refiltered_total",
-            "dense_device_order_total")
+            "dense_device_order_total", "dense_segment_fused_total")
 
 
 def port_tree(span):
@@ -495,9 +495,9 @@ TIER_COUNTERS = {
     "compiled_distinct": {"planes_built_total": 5, "programs_built_total": 1,
                           "queries_declined_compiled": 2, "queries_declined_compiled_join": 2,
                           "queries_declined_dense": 2, "queries_served_compiled_distinct": 2},
-    "dense": {"dense_device_order_total": 2, "planes_built_total": 2,
-              "queries_declined_compiled": 2, "queries_declined_compiled_join": 2,
-              "queries_served_dense": 2},
+    "dense": {"dense_device_order_total": 2, "dense_segment_fused_total": 4,
+              "planes_built_total": 2, "queries_declined_compiled": 2,
+              "queries_declined_compiled_join": 2, "queries_served_dense": 2},
     "compiled_scan": {"planes_built_total": 6, "queries_declined_compiled": 2,
                       "queries_declined_compiled_distinct": 2, "queries_declined_compiled_join": 2,
                       "queries_declined_dense": 2, "queries_declined_schema_meta": 2,
@@ -575,6 +575,34 @@ def test_shuffle_route_orders_on_the_host(monkeypatch):
             assert order == 1
     assert rows["shuffle"] == rows["segment"]
     assert len(rows["shuffle"]) == 3000
+
+
+@pytest.mark.parametrize("route", ["segment", "sorted"])
+def test_dense_segment_fused_counts_each_segment_route_part(route, monkeypatch):
+    """``dense_segment_fused_total`` counts one a part whose counts, first
+    rows and sums took the one-pass segment reduction: the tier table's two
+    parts on the segment route (3,000 stacks), none on the sorted route,
+    with the same rows."""
+    from frostdb_tpu_torch.parallel import mesh_exec as ME
+
+    if route == "sorted":
+        # 3,000 stacks past the segment route's threshold: the sorted route
+        monkeypatch.setattr(ME, "_SORTED_THRESHOLD", 2048)
+    tracer = Tracer()
+    db = ColumnStore(device="cpu").db("tr")
+    tier_table(db)
+    registry = PRegistry()
+    eng = PEngine(db.table_provider(), POptions(tracer=tracer, metrics=registry))
+    out = []
+    TIER_QUERIES["dense"](eng).execute(out.append)
+    assert eng.last_serving_path == "dense"
+    (root,) = tracer.roots
+    (dense,) = [c for c in root.children if c.name == "dense/execute"]
+    parts = next(c for c in dense.children if c.name == "dense/parts")
+    assert (parts.attributes["route"], parts.attributes["parts"]) == (route, 2)
+    fused = counted(registry).get("dense_segment_fused_total", 0)
+    assert fused == (2 if route == "segment" else 0)
+    assert len(FZ.rows(out)) == 3000
 
 
 def test_reference_view_keeps_an_unlisted_span():
