@@ -1749,30 +1749,25 @@ def dense_shapes(E, i, stacks="stacks", t="t"):
     ]
 
 
-@contextlib.contextmanager
-def dense_route_probe():
-    """Record (route, K) of every dense-tier execution while the block runs:
-    "segment" (K <= 4096) or "sorted" for the [K] program, "shuffle" past
-    2^20 codes."""
-    from frostdb_tpu_torch.parallel import mesh_exec as ME
+def dense_route_probe(engine, make_q):
+    """One run of a query under a tracer: (its output, and the route and K
+    that its ``dense/parts`` and ``groups/remap`` spans under
+    ``dense/execute`` record, or (None, None) where the dense tier did not
+    serve)."""
+    from frostdb_tpu_torch.tracing import Tracer
 
-    seen: list = []
-    cls = ME.MeshFilterAggregate
-    program, shuffle = cls._program, cls._execute_shuffle
-
-    def spy_program(self, sig, num_codes):
-        seen.append(("sorted" if num_codes > ME._SORTED_THRESHOLD else "segment", num_codes))
-        return program(self, sig, num_codes)
-
-    def spy_shuffle(self, parts, num_codes):
-        seen.append(("shuffle", num_codes))
-        return shuffle(self, parts, num_codes)
-
-    cls._program, cls._execute_shuffle = spy_program, spy_shuffle
+    saved, engine.exec_options.tracer = engine.exec_options.tracer, Tracer()
     try:
-        yield seen
+        out = run_shape(engine, make_q)
+        (root,) = engine.exec_options.tracer.roots
     finally:
-        cls._program, cls._execute_shuffle = program, shuffle
+        engine.exec_options.tracer = saved
+    for span in root.children:
+        if span.name == "dense/execute":
+            by_name = {c.name: c.attributes for c in span.children}
+            if "dense/parts" in by_name:
+                return out, by_name["dense/parts"]["route"], by_name["groups/remap"]["codes"]
+    return out, None, None
 
 
 def _reduction_module(name):
@@ -1961,16 +1956,13 @@ def dense_phase(AK, db, engine, generic, n_parts):
 
     AK.reset_launches()
     results = []
-    with dense_route_probe() as routes:
-        for name, table, make_q, route in dense_shapes(E, 0):
-            n_seen = len(routes)
-            out = run_shape(engine, make_q)
-            if engine.last_serving_path != "dense":
-                raise AssertionError(f"{name}: served by {engine.last_serving_path}: {engine.last_fallback_reasons}")
-            taken = routes[n_seen:]
-            if {r for r, _k in taken} != {route}:  # the [K] program: once per part
-                raise AssertionError(f"{name}: routes {taken}, expected {route}")
-            results.append((name, table, route, out, taken[0][1]))
+    for name, table, make_q, route in dense_shapes(E, 0):
+        out, taken, k = dense_route_probe(engine, make_q)
+        if engine.last_serving_path != "dense":
+            raise AssertionError(f"{name}: served by {engine.last_serving_path}: {engine.last_fallback_reasons}")
+        if taken != route:
+            raise AssertionError(f"{name}: route {taken} at K={k}, expected {route}")
+        results.append((name, table, route, out, k))
     launches = dict(AK.LAUNCHES)
     log(f"main path launches (dense shapes): {json.dumps(launches)}")
     if any(n for k, n in launches.items() if k in KERNELS):

@@ -15,8 +15,8 @@ shards:
 - the distributed hash join (absent in the reference — north-star
   extension)
 
-``mesh_exec`` holds the engine's ``mesh`` tier and its one-shard instance,
-the ``dense`` tier.
+``mesh_exec`` holds the engine's single-device ``dense`` tier and the
+``mesh`` tier built on it.
 """
 
 from .mesh import Mesh, PartitionedTable, make_mesh  # noqa: F401

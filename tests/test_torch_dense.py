@@ -137,9 +137,9 @@ def test_shuffle_route_filter_and_floats(monkeypatch):
     """test_shuffle_agg.py test_shuffle_tier_filter_and_floats: exact float
     sums on the shuffle route under a filter."""
     seen = []
-    orig = ME.MeshFilterAggregate._execute_shuffle
+    orig = ME.DenseLocalAggregate._execute_shuffle
     monkeypatch.setattr(
-        ME.MeshFilterAggregate, "_execute_shuffle",
+        ME.DenseLocalAggregate, "_execute_shuffle",
         lambda self, parts, k: seen.append(k) or orig(self, parts, k),
     )
     _s, jdb, _t = TSA._mk(seed=5, float_vals=True)
@@ -238,8 +238,8 @@ def test_float_minmax_dense_parity(seed):
 )
 def test_float_minmax_edges_dense(vals):
     """test_float_sums.py test_float_minmax_huge_magnitudes and
-    test_float_minmax_negzero_serves_dense: keys past 2^62 ride the (hi, lo)
-    lexicographic route; -0.0 orders below +0.0."""
+    test_float_minmax_negzero_serves_dense: keys past 2^62 reduce exactly;
+    -0.0 orders below +0.0."""
     _s, jdb, _t = TFS._mk([vals], [["a"] * len(vals)])
     ref, got = run_both(jdb, _fv_query("Min", "Max"))
     assert_same(ref, got, "dense")
@@ -255,6 +255,37 @@ def test_float_minmax_sorted_route_large_k():
     _s, jdb, _t = TFS._mk([vals], [grps])
     ref, got = run_both(jdb, _fv_query("Min", "Max", "Sum"))
     assert_same(ref, got, "dense")
+
+
+def split_groups_db(k: int, seed: int = 11):
+    """Two parts of 4,000 rows over ``k`` groups, so each part lacks groups
+    the other holds, with float values of both signs and |v| >= 2 (ordering
+    keys past 2^62): a part's empty group must hold the int64 extreme
+    before the parts fold."""
+    rng = np.random.default_rng(seed)
+    vpp, gpp = [], []
+    for _p in range(2):
+        n = 4000
+        vpp.append((rng.choice([-1.0, 1.0], n) * rng.uniform(2.0, 1e6, n)).tolist())
+        gpp.append([f"g{int(x)}" for x in rng.integers(0, k, n)])
+    return TFS._mk(vpp, gpp)[1]
+
+
+@pytest.mark.parametrize("route,k", [("segment", 3000), ("sorted", 12000)])
+def test_float_minmax_groups_missing_from_a_part(route, k):
+    """Float min/max over two parts that each lack groups of the other, on
+    the segment route (about 3,000 codes) and the sorted route (about
+    5,800)."""
+    jdb = split_groups_db(k)
+    ref, got = run_both(jdb, _fv_query("Min", "Max"))
+    assert_same(ref, got, "dense")
+    tracer = Tracer()
+    peng = PEngine(carry(jdb).table_provider(), exec_options=POptions(tracer=tracer))
+    _fv_query("Min", "Max")(peng, PE).execute(lambda b: None)
+    (root,) = tracer.roots
+    (dense,) = [c for c in root.children if c.name == "dense/execute"]
+    assert next(c for c in dense.children if c.name == "dense/parts").attributes == {
+        "parts": 2, "route": route}
 
 
 @pytest.mark.parametrize("seed", [0, 1])

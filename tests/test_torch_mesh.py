@@ -38,6 +38,7 @@ from frostdb_tpu.query.engine import LocalEngine as JEngine
 from frostdb_tpu.query.physical import ExecOptions as JOptions
 from frostdb_tpu.schema import sample_definition
 from frostdb_tpu.table import TableConfig
+from test_torch_dense import split_groups_db
 from test_torch_engine import carry, to_port
 
 from frostdb_tpu_torch import columnbatch as PCB
@@ -377,6 +378,16 @@ def test_edge_values_mesh():
     """-0.0, +-inf, NaN, subnormals and 1e300 through float min/max."""
     _s, jdb = TFM._mk_dict_grouped(seed=1)
     parity(jdb, _f_minmax(), (1, 8))
+
+
+@pytest.mark.parametrize("k", [3000, 12000])
+def test_float_minmax_groups_missing_from_a_part_mesh(k):
+    """Float min/max over two parts that each lack groups of the other
+    (keys past 2^62), on the segment and the sorted route: a shard's empty
+    group holds the int64 extreme before the shards combine."""
+    jdb = split_groups_db(k)
+    parity(jdb, on_table(lambda b: b.aggregate(
+        [E.Min(E.Col("fv")), E.Max(E.Col("fv"))], [E.Col("g")])), (1, 8))
 
 
 # ---------------------------------------------------------------------------

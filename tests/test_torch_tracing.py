@@ -266,8 +266,7 @@ TIER_QUERIES = {
     "generic": lambda e: e.scan_table("t").project(PE.Col("value")).order_by("value"),
 }
 
-COUNTERS = ("planes_built_total", "programs_built_total", "scan_blocks_refiltered_total",
-            "dense_device_order_total", "dense_segment_fused_total")
+COUNTERS = ("planes_built_total", "programs_built_total", "scan_blocks_refiltered_total")
 
 
 def port_tree(span):
@@ -495,8 +494,7 @@ TIER_COUNTERS = {
     "compiled_distinct": {"planes_built_total": 5, "programs_built_total": 1,
                           "queries_declined_compiled": 2, "queries_declined_compiled_join": 2,
                           "queries_declined_dense": 2, "queries_served_compiled_distinct": 2},
-    "dense": {"dense_device_order_total": 2, "dense_segment_fused_total": 4,
-              "planes_built_total": 2, "queries_declined_compiled": 2,
+    "dense": {"planes_built_total": 2, "queries_declined_compiled": 2,
               "queries_declined_compiled_join": 2, "queries_served_dense": 2},
     "compiled_scan": {"planes_built_total": 6, "queries_declined_compiled": 2,
                       "queries_declined_compiled_distinct": 2, "queries_declined_compiled_join": 2,
@@ -541,8 +539,8 @@ def test_port_span_tree_of_each_tier(tier, monkeypatch):
 
 def test_shuffle_route_orders_on_the_host(monkeypatch):
     """The dense tier's shuffle route keeps its host emission order: no
-    ``dense_device_order_total`` and no ``order`` on its epilogue span,
-    with the same rows as the dense route over the same table."""
+    ``order`` on its epilogue span, with the same rows as the dense route
+    over the same table, and the group remap built once."""
     from frostdb_tpu_torch.parallel import mesh_exec as ME
 
     rows = {}
@@ -554,8 +552,7 @@ def test_shuffle_route_orders_on_the_host(monkeypatch):
         out = []
         db = ColumnStore(device="cpu").db("tr")
         tier_table(db)
-        registry = PRegistry()
-        eng = PEngine(db.table_provider(), POptions(tracer=tracer, metrics=registry))
+        eng = PEngine(db.table_provider(), POptions(tracer=tracer))
         TIER_QUERIES["dense"](eng).execute(out.append)
         assert eng.last_serving_path == "dense"
         (root,) = tracer.roots
@@ -565,34 +562,36 @@ def test_shuffle_route_orders_on_the_host(monkeypatch):
             for name in ("dense/parts", "result/epilogue")
         )
         rows[route] = FZ.rows(out)
-        order = counted(registry).get("dense_device_order_total", 0)
         assert parts.attributes["route"] == route
+        assert [c.name for c in dense.children].count("groups/remap") == 1
         if route == "shuffle":
             assert "order" not in epilogue.attributes
-            assert order == 0
         else:
             assert epilogue.attributes["order"] == "device"
-            assert order == 1
     assert rows["shuffle"] == rows["segment"]
     assert len(rows["shuffle"]) == 3000
 
 
 @pytest.mark.parametrize("route", ["segment", "sorted"])
 def test_dense_segment_fused_counts_each_segment_route_part(route, monkeypatch):
-    """``dense_segment_fused_total`` counts one a part whose counts, first
-    rows and sums took the one-pass segment reduction: the tier table's two
-    parts on the segment route (3,000 stacks), none on the sorted route,
-    with the same rows."""
+    """The ``dense/parts`` span names the route and counts the parts: the
+    tier table's two parts on the segment route (3,000 stacks), whose
+    counts, first rows and sums take one ``dense_segment_sum_count`` call
+    a part (K7 on the card), or on the sorted route, which calls it for
+    none, with the same rows."""
     from frostdb_tpu_torch.parallel import mesh_exec as ME
 
     if route == "sorted":
         # 3,000 stacks past the segment route's threshold: the sorted route
         monkeypatch.setattr(ME, "_SORTED_THRESHOLD", 2048)
+    calls = []
+    one_pass = ME.AK.dense_segment_sum_count
+    monkeypatch.setattr(ME.AK, "dense_segment_sum_count",
+                        lambda *a: calls.append(a[-1]) or one_pass(*a))
     tracer = Tracer()
     db = ColumnStore(device="cpu").db("tr")
     tier_table(db)
-    registry = PRegistry()
-    eng = PEngine(db.table_provider(), POptions(tracer=tracer, metrics=registry))
+    eng = PEngine(db.table_provider(), POptions(tracer=tracer))
     out = []
     TIER_QUERIES["dense"](eng).execute(out.append)
     assert eng.last_serving_path == "dense"
@@ -600,8 +599,7 @@ def test_dense_segment_fused_counts_each_segment_route_part(route, monkeypatch):
     (dense,) = [c for c in root.children if c.name == "dense/execute"]
     parts = next(c for c in dense.children if c.name == "dense/parts")
     assert (parts.attributes["route"], parts.attributes["parts"]) == (route, 2)
-    fused = counted(registry).get("dense_segment_fused_total", 0)
-    assert fused == (2 if route == "segment" else 0)
+    assert calls == ([3000, 3000] if route == "segment" else [])
     assert len(FZ.rows(out)) == 3000
 
 
