@@ -13,8 +13,11 @@ the count-only pass, int32-extreme values, negative selection entries and
 min/max's second pass over a wide column; for the dense segment reduction
 K up to 4,096, runs of 1-16,380 rows, int64 sums that wrap, live counts
 below the padded length and the 6- and 7-part layouts of a 67M-row
-table). Then drives six paths, each
-with the launch counts set to 0 just before it and read just after:
+table; for the dense table reduction K 4,097 to 2^20, uniform, Zipf 1.1,
+hot and run-length codes, codes out of range, 0-13 sum planes, row bases
+past 2^31, a Merge part's Zipf stream and TSBS's ten-plane shape). Then
+drives six paths, each with the launch counts set to 0 just before it and
+read just after:
 
 1. the aggregate shapes (slice 1): the engine's hot filter + group-by
    query shapes through LocalEngine on a 32 x 2^21-row table (the shape of
@@ -35,23 +38,26 @@ with the launch counts set to 0 just before it and read just after:
    row for row against a numpy join; timed and profiled;
 4. the dense shapes (slice 4) on a second 32 x 2^21-row table whose
    stacktraces take 131,072 values at Zipf-like frequencies: Parca's merge
-   (sum and count by stacktrace over a time range) and its min/max on the
-   dense tier's sorted route, a (label, window) group-by of 4096 codes on
-   its segment route and a (label, stacktrace) group-by of 8,388,608 codes
-   on its shuffle route, each checked against numpy at full width and
-   against the generic DAG on a 2-part table, timed and profiled; no
-   K1-K6 kernel may run here (the dense tier is torch ops and, on the
-   segment route, dense_segment_sum_count, which must run);
+   (sum and count by stacktrace over a time range) on the dense tier's
+   table route, its min/max and a sum with a min on its sorted route, a
+   (label, window) group-by of 4096 codes on its segment route and a
+   (label, stacktrace) group-by of 8,388,608 codes on its shuffle route,
+   each checked against numpy at full width and against the generic DAG
+   on a 2-part table, timed and profiled; no K1-K6 kernel may run here
+   (the dense tier is torch ops, dense_segment_sum_count on the segment
+   route and dense_table_sum_count on the table route, both of which must
+   run);
 5. the mesh shapes (slice 7): the five aggregate shapes, dense_stack,
    dense_shuffle, an exact float sum, a float min/max and join_rows under
    ExecOptions(mesh=...) at 1 and at 4 shards (the 4 shards all on the one
    card), each served by the mesh tier (join_rows by the generic HashJoin,
    its pairs expanded by the distributed join) and equal, in order, to the
    same shape on its local tier; no K1-K6 kernel may run here (the mesh
-   tier is torch ops and dense_segment_sum_count); dense_shuffle at 4
-   shards must move pairs across shards; then the distributed modules
-   (filter-aggregate, distinct, shuffle, join) against numpy, timings and
-   a profile at each shard count, the sharded upload's bytes and seconds;
+   tier is torch ops, dense_segment_sum_count and dense_table_sum_count);
+   dense_shuffle at 4 shards must move pairs across shards; then the
+   distributed modules (filter-aggregate, distinct, shuffle, join) against
+   numpy, timings and a profile at each shard count, the sharded upload's
+   bytes and seconds;
 6. the kernel bench (bench.py's data): 8 datasets of 2^25 rows through the
    fused `ts >= literal` sum/count kernel, checked exactly against numpy.
 
@@ -497,6 +503,96 @@ def dense_segment_edge_cases(AK, dev) -> None:
     log(f"dense segment cases: {checked} dense_segment_sum_count calls exact")
 
 
+def dense_table_check(AK, what, codes, sel, values, n, row_base, k) -> int:
+    """One dense_table_sum_count call against the plain version, exactly;
+    returns 1."""
+    import torch
+
+    got = AK.dense_table_sum_count(codes, sel, values, n, row_base, k)
+    torch.cuda.synchronize()
+    want = AK.dense_table_sum_count_plain(codes, sel, values, n, row_base, k)
+    got, want = [got[0], got[1], *got[2]], [want[0], want[1], *want[2]]
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if not torch.equal(g, w)]
+    if bad or len(got) != len(want):
+        raise AssertionError(
+            f"dense_table_sum_count on {what}, n={n}, row_base={row_base}, K={k}, "
+            f"{len(values)} planes: outputs {bad} (counts, first, sums...) differ"
+        )
+    return 1
+
+
+def zipf_codes(k: int, rows: int, g, dev):
+    """``rows`` codes of [0, k) with p proportional to 1 / (code + 1)^STACK_ZIPF."""
+    import torch
+
+    p = 1.0 / torch.arange(1, k + 1, dtype=torch.float64, device=dev) ** STACK_ZIPF
+    return torch.multinomial(p / p.sum(), rows, replacement=True, generator=g).to(torch.int32)
+
+
+def dense_table_edge_cases(AK, dev) -> None:
+    """The dense table reduction against its plain version, exactly: K
+    4,097, 131,072 and 2^20 (codes up to K - 1) drawn uniformly, at Zipf
+    1.1, with one hot code on half the rows and in runs of 360 rows, a
+    selected code outside [0, K) every 97th and 101st row; every row, 2% of
+    the rows and no row selected; 0, 1, 12 and 13 int64 planes near +-2^63
+    whose sums wrap (13: a second pass over the codes); row_base 0 and past
+    2^31; a live count 1,001 rows short of the padding, n not a multiple
+    of the 4-row vector and below one vector; planes at a one-row offset
+    (scalar loads). Then two shapes at full size: a Merge part (16,777,216
+    padded rows, 15,728,640 live, K 131,072 at Zipf 1.1, one sum plane, a
+    time range selecting a third of them) and a TSBS part (3,600,000 rows
+    of 10,000 (host, hour) runs of 360 rows over K 64,000, ten planes,
+    every row selected)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(800)
+    pad = 3 * 16380 + 13
+    checked = 0
+    for k in (4097, 131072, 1 << 20):
+        layouts = {
+            "uniform": torch.randint(0, k, (pad,), generator=g, device=dev, dtype=torch.int32),
+            "zipf": zipf_codes(k, pad, g, dev),
+            "hot": torch.where(torch.rand(pad, generator=g, device=dev) < 0.5, k - 1,
+                               torch.randint(0, k, (pad,), generator=g, device=dev)).to(torch.int32),
+            "runs:360": torch.randint(0, k, (-(-pad // 360),), generator=g, device=dev,
+                                      dtype=torch.int32).repeat_interleave(360)[:pad],
+        }
+        for layout, codes in layouts.items():
+            codes = codes.contiguous()
+            codes[::97] = -1
+            codes[::101] = k
+            for planes in (0, 1, 12, 13):
+                vals = []
+                for _p in range(planes):
+                    v = torch.randint(2**62, 2**63 - 1, (pad,), generator=g, device=dev, dtype=torch.int64)
+                    vals.append(torch.where(torch.rand(pad, generator=g, device=dev) < 0.5, -v, v))
+                for selection in ("all", "sparse", "none"):
+                    sel = {
+                        "all": torch.ones(pad, dtype=torch.bool, device=dev),
+                        "none": torch.zeros(pad, dtype=torch.bool, device=dev),
+                        "sparse": torch.rand(pad, generator=g, device=dev) < 0.02,
+                    }[selection]
+                    what = f"{layout}, {selection} selected"
+                    for n, row_base in ((pad, 0), (pad - 1001, 3 * 2**31 + 7), (pad - 2, 0), (3, 5)):
+                        checked += dense_table_check(AK, what, codes, sel, vals, n, row_base, k)
+                    if selection == "all" and planes == 1:
+                        x = [t[1:] for t in (codes, sel)]
+                        checked += dense_table_check(
+                            AK, what + ", one-row offset", *x, [v[1:] for v in vals], pad - 1001, pad, k)
+    m, live = 1 << 24, 15 * (1 << 20)
+    codes = zipf_codes(NUM_STACKS, m, g, dev)
+    sel = torch.zeros(m, dtype=torch.bool, device=dev)
+    sel[live // 3: 2 * live // 3] = True
+    v = torch.randint(1, 3, (m,), generator=g, device=dev, dtype=torch.int64)
+    checked += dense_table_check(AK, "a Merge part", codes, sel, [v], live, 0, NUM_STACKS)
+    rows = 3_600_000
+    codes = torch.randperm(64_000, generator=g, device=dev)[:rows // 360].to(torch.int32).repeat_interleave(360)
+    vals = [torch.randint(0, 101, (rows,), generator=g, device=dev, dtype=torch.int64) for _ in range(10)]
+    checked += dense_table_check(AK, "a TSBS part", codes, torch.ones(rows, dtype=torch.bool, device=dev),
+                                 vals, rows, 2**31, 64_000)
+    log(f"dense table cases: {checked} dense_table_sum_count calls exact")
+
+
 def kernel_phase(AK, dev, main_rows):
     import torch
 
@@ -504,6 +600,7 @@ def kernel_phase(AK, dev, main_rows):
     new_kernel_edge_cases(AK, dev, errs)
     layout_edge_cases(AK, dev, errs)
     dense_segment_edge_cases(AK, dev)
+    dense_table_edge_cases(AK, dev)
     # Edge cases: code spaces, every row filtered out, a ragged length,
     # values near 2^31, 3-clause bands with a dict-style equality.
     cases = [
@@ -1723,9 +1820,9 @@ def dense_literals(i):
 def dense_shapes(E, i, stacks="stacks", t="t"):
     """The dense phase's query shapes for query number ``i``: (name, table,
     fn(engine) -> query, route). Parca's merge (sum and count over a time
-    range by stacktrace, K = 131,072), its min/max, a (label, 20-unit
-    window of timestamp) group-by on the engine table (K = 64 x 64) and a
-    (label, stacktrace) group-by (K = 64 x 131,072)."""
+    range by stacktrace, K = 131,072), its min/max and a sum with a min, a
+    (label, 20-unit window of timestamp) group-by on the engine table (K =
+    64 x 64) and a (label, stacktrace) group-by (K = 64 x 131,072)."""
     ts, v = E.Col("timestamp"), E.Col("value")
     lits = dense_literals(i)
     stack, label = E.Col("stacktrace"), E.Col("labels.label1")
@@ -1733,10 +1830,14 @@ def dense_shapes(E, i, stacks="stacks", t="t"):
         ("dense_stack", stacks,
          lambda e: e.scan_table(stacks).filter(ts.gt_eq(lits["ts"])).aggregate(
              [E.Sum(v), E.Count(v)], [stack]),
-         "sorted"),
+         "table"),
         ("dense_stack_minmax", stacks,
          lambda e: e.scan_table(stacks).filter(ts.gt_eq(lits["ts"])).aggregate(
              [E.Min(v), E.Max(v)], [stack]),
+         "sorted"),
+        ("dense_stack_summin", stacks,
+         lambda e: e.scan_table(stacks).filter(ts.gt_eq(lits["ts"])).aggregate(
+             [E.Sum(v), E.Min(v)], [stack]),
          "sorted"),
         ("dense_segment", t,
          lambda e: e.scan_table(t).filter(v.gt_eq(lits["value"])).aggregate(
@@ -1750,10 +1851,10 @@ def dense_shapes(E, i, stacks="stacks", t="t"):
 
 
 def dense_route_probe(engine, make_q):
-    """One run of a query under a tracer: (its output, and the route and K
-    that its ``dense/parts`` and ``groups/remap`` spans under
-    ``dense/execute`` record, or (None, None) where the dense tier did not
-    serve)."""
+    """One run of a query under a tracer: (its output, and the route, K and
+    parts read that its ``dense/parts`` and ``groups/remap`` spans under
+    ``dense/execute`` record, or (None, None, None) where the dense tier
+    did not serve)."""
     from frostdb_tpu_torch.tracing import Tracer
 
     saved, engine.exec_options.tracer = engine.exec_options.tracer, Tracer()
@@ -1766,26 +1867,27 @@ def dense_route_probe(engine, make_q):
         if span.name == "dense/execute":
             by_name = {c.name: c.attributes for c in span.children}
             if "dense/parts" in by_name:
-                return out, by_name["dense/parts"]["route"], by_name["groups/remap"]["codes"]
-    return out, None, None
+                parts = by_name["dense/parts"]
+                return out, parts["route"], by_name["groups/remap"]["codes"], parts["parts"]
+    return out, None, None, None
 
 
 def _reduction_module(name):
-    """The module of a dense-tier reduction: the segment route's kernel
-    (ops/agg_kernels.py) or one of ops/kernels.py's two."""
+    """The module of a dense-tier reduction: the segment or table route's
+    kernel (ops/agg_kernels.py) or one of ops/kernels.py's two."""
     from frostdb_tpu_torch.ops import agg_kernels as AK
     from frostdb_tpu_torch.ops import kernels as K
 
-    return AK if name == "dense_segment_sum_count" else K
+    return AK if name in ("dense_segment_sum_count", "dense_table_sum_count") else K
 
 
 @contextlib.contextmanager
 def capture_reductions():
     """Record the arguments of every call of the dense tier's reductions
-    (ops/kernels.py's two, the segment route's kernel) while the block
-    runs: {function name: [args]}."""
+    (ops/kernels.py's two, the segment and table routes' kernels) while
+    the block runs: {function name: [args]}."""
     seen: dict = {"sorted_group_reduce": [], "dense_group_reduce": [],
-                  "dense_segment_sum_count": []}
+                  "dense_segment_sum_count": [], "dense_table_sum_count": []}
     saved = {name: getattr(_reduction_module(name), name) for name in seen}
 
     def recorder(name, fn):
@@ -1866,12 +1968,15 @@ def dense_reference(name, i, stream):
     np.minimum.at(first, key, np.arange(len(key), dtype=np.int64))
     present = np.flatnonzero(cnt)
     g = present[np.argsort(first[present], kind="stable")]
-    if name == "dense_stack_minmax":
+    if name in ("dense_stack_minmax", "dense_stack_summin"):
         mn = np.full(space, np.iinfo(np.int64).max)
         mx = np.full(space, np.iinfo(np.int64).min)
         np.minimum.at(mn, key, x)
         np.maximum.at(mx, key, x)
-        aggs = [mn[g], mx[g]]
+        if name == "dense_stack_minmax":
+            aggs = [mn[g], mx[g]]
+        else:
+            aggs = [np.bincount(key, weights=x, minlength=space).astype(np.int64)[g], mn[g]]
     else:
         s = np.bincount(key, weights=x, minlength=space).astype(np.int64)
         aggs = [s[g]] if name == "dense_shuffle" else [s[g], cnt[g]]
@@ -1924,14 +2029,14 @@ def same_columns(a, b, renames=None) -> bool:
 
 
 def dense_phase(AK, db, engine, generic, n_parts):
-    """Slice 4's path: Parca's by-stacktrace merge and three more group-bys
+    """Slice 4's path: Parca's by-stacktrace merge and four more group-bys
     past the kernels' 2048 codes, on a table ``stacks`` built like the
     engine table but with Zipf-distributed stacktraces. Each shape once with
     the launch counts set to 0 before and read after (no K1-K6 may run),
     served by the dense tier on its route, equal to numpy at full width and
     to the generic DAG on a 2-part table; then timed over QUERY_REPS
-    queries with varying literals, profiled, and the sorted and segment
-    reductions timed on one query's inputs."""
+    queries with varying literals, profiled, and the segment, table and
+    sorted reductions timed on one query's inputs."""
     import torch
 
     from frostdb_tpu_torch.query import expr as E
@@ -1956,8 +2061,10 @@ def dense_phase(AK, db, engine, generic, n_parts):
 
     AK.reset_launches()
     results = []
+    table_parts = 0
     for name, table, make_q, route in dense_shapes(E, 0):
-        out, taken, k = dense_route_probe(engine, make_q)
+        out, taken, k, n_read = dense_route_probe(engine, make_q)
+        table_parts += n_read if taken == "table" else 0
         if engine.last_serving_path != "dense":
             raise AssertionError(f"{name}: served by {engine.last_serving_path}: {engine.last_fallback_reasons}")
         if taken != route:
@@ -1969,6 +2076,10 @@ def dense_phase(AK, db, engine, generic, n_parts):
         raise AssertionError("a K1-K6 kernel was launched on the dense shapes")
     if not launches["dense_segment_sum_count"]:
         raise AssertionError("the segment route launched no dense_segment_sum_count")
+    if not table_parts or launches["dense_table_sum_count"] != table_parts:
+        raise AssertionError(
+            f"the table route launched dense_table_sum_count {launches['dense_table_sum_count']} "
+            f"times, not once a part ({table_parts})")
 
     on_small = {name: make_q for name, _t, make_q, _r in dense_shapes(E, 0, "stacks2", "t2")}
     for name, table, route, out, k in results:
@@ -2015,7 +2126,7 @@ def dense_phase(AK, db, engine, generic, n_parts):
         walls, top=8,
     )
     for name, _table, make_q, _route in dense_shapes(E, 0):
-        if name in ("dense_stack", "dense_stack_minmax", "dense_segment"):
+        if name != "dense_shuffle":
             with capture_reductions() as captured:
                 run_shape(engine, make_q)
             reduction_times(name, captured)
@@ -2032,7 +2143,7 @@ MESH_SHARDS = (1, 4)
 def mesh_shapes(E, i):
     """The mesh phase's query shapes for query number ``i``: (name,
     fn(engine) -> query, tier under ExecOptions(mesh=...)). The five
-    aggregate shapes on ``t``, dense_stack (the sorted program) and
+    aggregate shapes on ``t``, dense_stack (the table route) and
     dense_shuffle (the pair exchange) on ``stacks``, an exact float sum
     (digit planes) and a float min/max (the two-pass (hi, lo) reduce) on
     ``fx``, and join_rows (the generic HashJoin, its pairs expanded by the
@@ -2333,6 +2444,8 @@ def sql_texts(lit, i):
                       f"where value > {j['value_gt']}"),
         "dense_stack": f"select stacktrace, sum(value), count(value) where timestamp >= {d['ts']} group by stacktrace",
         "dense_stack_minmax": (f"select stacktrace, min(value), max(value) where timestamp >= {d['ts']} "
+                               f"group by stacktrace"),
+        "dense_stack_summin": (f"select stacktrace, sum(value), min(value) where timestamp >= {d['ts']} "
                                f"group by stacktrace"),
         # SQL's windows are whole seconds (second(n)); a 20-unit window is
         # the projected key (timestamp / 20) * 20, emitted as "bucket"

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Time variants of the dense segment reduction on one NVIDIA GPU, on the
-inputs of gpubench's ``parca_profiles.range_wide`` queries.
+inputs of gpubench's ``parca_profiles.range_wide`` queries, or the dense
+table reduction on the inputs of Merge's and TSBS's.
 
     python3 dense_variants.py [--seed N] [--rounds N]
+    python3 dense_variants.py --table [--seed N] [--rounds N]
 
 Builds ``frostdb_tpu_torch/csrc/dense.cu`` as it is ("final") and as a few
 variants made by small edits of its text (a grid stride in place of a
@@ -22,6 +24,19 @@ calls, i.e. three ``scatter_reduce_`` calls a part, with their
 temporaries) and the bound: 13 B a live row (int32 code, selection byte,
 int64 value) and the three [K] int64 outputs at 3.35 TB/s. Prints the
 card's name and power limit and a JSON line last.
+
+With ``--table``: the tables of ``parca_profiles.merge`` and
+``tsbs_devops.queries`` built from the seed, and the arguments of every
+``dense_table_sum_count`` call (one a part) of Merge's fleet-wide shape
+over the last 5, 15 and 60 minutes and of two of TSBS's
+double_groupby_all windows. On each query's calls: the kernel, checked
+exactly against its plain version (one ``scatter_reduce_`` for the counts,
+one for the first rows and one a sum plane: the library yardstick too) and
+timed with it and with ``kernels.sorted_group_reduce`` (the sorted route's
+reduction, which the table route replaces) on the same rows, in a chain
+of 20 queries between CUDA events, ``--rounds`` rounds in alternating
+order; beside them the bound: 5 B a live row (code, selection byte), 8 B a
+sum plane of each selected row and the [K] int64 outputs at 3.35 TB/s.
 """
 
 from __future__ import annotations
@@ -111,47 +126,115 @@ def bind(AK, so):
     return types.SimpleNamespace(**{**vars(AK._load()), "fdb_dense_segment_sum_count": fn})
 
 
-def captured_calls(AK, seed):
-    """{shape label: [dense_segment_sum_count args, one a part]} over the
-    cell's query shapes, on its table built from ``seed``."""
+def captured_calls(AK, seed, cell=CELL, kernel="dense_segment_sum_count", pick=None):
+    """{shape label: [``kernel`` args, one a part]} over the cell's query
+    shapes (those whose (name, params) ``pick`` takes: all by default), on
+    its table built from ``seed``."""
     sys.path.insert(0, os.path.join(ROOT, "gpubench"))
     from harness import client, datagen, spec
 
     from frostdb_tpu_torch.db import ColumnStore
     from frostdb_tpu_torch.query.engine import LocalEngine
 
-    _bench, _cell, config, mix = spec.load_cell(os.path.join(ROOT, "gpubench"), CELL)
+    _bench, _cell, config, mix = spec.load_cell(os.path.join(ROOT, "gpubench"), cell)
     rows = datagen.generate(config, seed)
     db = ColumnStore(device="cuda").db("variants")
     table = client.fill_table(db, config, rows.batches(), rows.dicts)
     table.sync()
     parts = table.collect_parts(db.high_watermark())
-    log(f"{CELL} seed {seed}: {rows.n} rows, {len(parts)} parts after sync, "
+    log(f"{cell} seed {seed}: {rows.n} rows, {len(parts)} parts after sync, "
         f"{[p.batch.num_rows for p in parts]} rows in them")
     engine = LocalEngine(db.table_provider())
-    fn = AK.dense_segment_sum_count
+    fn = getattr(AK, kernel)
     seen: list = []
-    AK.dense_segment_sum_count = lambda *a: seen.append(a) or fn(*a)
+    setattr(AK, kernel, lambda *a: seen.append(a) or fn(*a))
     found = {}
     try:
         for name in mix["cycle"]:
             shape = mix["shapes"][name]
             for params in spec.combos(shape):
+                if pick is not None and not pick(name, params):
+                    continue
                 q = spec.bind(shape["query"], params)
                 del seen[:]
                 client.build(engine, config["table"], q).execute(lambda b: None)
                 if engine.last_serving_path != "dense":
                     raise AssertionError(f"{name} {params}: served by {engine.last_serving_path}")
-                found[f"{name} E={params['E']} R={params['R']}"] = list(seen)
+                found[f"{name} " + " ".join(f"{k}={v}" for k, v in sorted(params.items()))] = list(seen)
     finally:
-        AK.dense_segment_sum_count = fn
+        setattr(AK, kernel, fn)
     return found
+
+
+# (cell, the shapes timed): Merge's fleet-wide ranges ending now; two of
+# TSBS's 12-hour double_groupby_all windows.
+TABLE_CELLS = (
+    ("parca_profiles.merge", lambda name, params: name == "merge"),
+    ("tsbs_devops.queries", lambda name, params: name == "double_groupby_all" and params["S"] in (0, 36)),
+)
+
+
+def table_times(AK, S, seed: int, rounds: int) -> dict:
+    """The dense table reduction on each picked query's calls: exact
+    against its plain version, then timed beside it and beside the sorted
+    route's reduction; logs a line a query and returns the figures."""
+    import torch
+
+    from frostdb_tpu_torch.ops import kernels as K
+
+    results = {}
+    for cell, pick in TABLE_CELLS:
+        for label, calls in captured_calls(AK, seed, cell, "dense_table_sum_count", pick).items():
+            live = sum(int(a[3]) for a in calls)
+            selected = sum(int(a[1][: int(a[3])].sum()) for a in calls)
+            k, planes = calls[0][5], len(calls[0][2])
+            bound_ms = ((5 * live + 8 * planes * selected) + (2 + planes) * 8 * k * len(calls)) / HBM_BYTES_PER_S * 1e3
+            # the sorted route's inputs: the live rows folded into the
+            # selection, the rows as stream positions
+            sorted_args = []
+            for codes, sel, values, n, row_base, _k in calls:
+                local = torch.arange(codes.shape[0], device=codes.device)
+                sorted_args.append((codes, sel & (local < n), local + row_base, values))
+
+            def kernel(calls=calls):
+                return [AK.dense_table_sum_count(*a) for a in calls]
+
+            def plain(calls=calls):
+                return [AK.dense_table_sum_count_plain(*a) for a in calls]
+
+            def sorted_route(sorted_args=sorted_args, k=k, planes=planes):
+                return [K.sorted_group_reduce(c, s, r, v, k, (K.AGG_SUM,) * planes)
+                        for c, s, r, v in sorted_args]
+
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                if not (torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+                        and all(torch.equal(x, y) for x, y in zip(g[2], w[2]))):
+                    raise AssertionError(f"dense_table_sum_count differs from the plain version on {cell} {label}")
+            times = {"kernel": [], "plain": [], "sorted route": []}
+            fns = {"kernel": kernel, "plain": plain, "sorted route": sorted_route}
+            for rnd in range(rounds):
+                for name in (list(fns) if rnd % 2 == 0 else list(fns)[::-1]):
+                    times[name].append(S.chained_ms(fns[name]))
+            results[f"{cell} {label}"] = {
+                "parts": len(calls), "live_rows": live, "selected_rows": selected, "K": k,
+                "planes": planes, "bound_ms": bound_ms,
+                "ms": {n: [min(t), statistics.median(t), max(t)] for n, t in times.items()},
+            }
+            log(f"{cell} {label}: {len(calls)} parts, {live} live rows, {selected} selected, K={k}, "
+                f"{planes} planes; " + ", ".join(
+                    f"{n} {min(t):.4f}/{statistics.median(t):.4f}/{max(t):.4f}" for n, t in times.items())
+                + f" ms a query; bound {bound_ms:.4f} ms")
+    return results
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=3000001701)
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--table", action="store_true",
+                    help="time the dense table reduction on Merge's and TSBS's inputs")
     args = ap.parse_args()
     import torch
 
@@ -166,6 +249,12 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     log(smi)
+    if args.table:
+        AK.build()
+        results = table_times(AK, S, args.seed, args.rounds)
+        log(smi)
+        log(json.dumps({"device": smi, "seed": args.seed, "dense_table_sum_count": results}))
+        return 0
     tmp = os.path.join(ROOT, "build", "variants")
     os.makedirs(tmp, exist_ok=True)
     libs = {name: bind(AK, so) for name, so in build(AK, sources(), tmp).items()}

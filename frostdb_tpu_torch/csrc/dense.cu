@@ -1,11 +1,16 @@
-// The dense tier's segment reduction for Hopper (sm_90a):
-// dense_segment_sum_count, one pass over one part (or one shard of it) for
-// the per-code count, first selected row and int64 sum of a group-by of at
-// most 4,096 codes (parallel/mesh_exec.py, the segment route).
+// The dense tier's one-pass reductions for Hopper (sm_90a), one part (or
+// one shard of it) a launch, into per-code counts, first selected rows and
+// int64 sums (parallel/mesh_exec.py):
+//  - dense_segment_sum_count (K7), the segment route, at most 4,096 codes,
+//    its tables in shared memory;
+//  - dense_table_sum_count (K8), the table route, 4,096 < K <= 2^20 codes
+//    of sums and counts only, its tables in device memory (below).
 //
-// It replaces no Pallas kernel: the JAX package leaves this reduction to
-// XLA's segment_sum (three segment reductions a part). The port's plain
-// version is ops/kernels.dense_group_reduce, three scatter_reduce_ calls
+// Neither replaces a Pallas kernel: the JAX package leaves these reductions
+// to XLA (segment_sum; a sort and prefix sums past 4,096 codes).
+//
+// dense_segment_sum_count. The port's plain version is
+// ops/kernels.dense_group_reduce, three scatter_reduce_ calls
 // with int64 global atomics, each over every padded row with about 110
 // bytes of temporaries a row.
 //
@@ -48,7 +53,7 @@
 // Sums wrap modulo 2^64, as int64 adds do, so every result is exact
 // whatever the order of the writes.
 //
-// The C entry returns cudaGetLastError() after its launch (0 = launched).
+// Each C entry returns cudaGetLastError() after its launches (0 = launched).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -233,8 +238,19 @@ struct Job {
   cudaStream_t stream;
 };
 
-// As many blocks as fit the card at once, each on a contiguous chunk of a
-// whole number of steps.
+// As many blocks as fit the card at once (per_sm a multiprocessor), each on
+// a contiguous chunk of a whole number of steps of the nvec vectors.
+void grid(long long nvec, int num_sms, int per_sm, long long& blocks, long long& chunk) {
+  if (per_sm < 1) per_sm = 1;
+  blocks = (nvec + kSpan - 1) / kSpan;
+  const long long cap = (long long)num_sms * per_sm;
+  if (blocks > cap) blocks = cap;
+  if (blocks < 1) blocks = 1;
+  chunk = ((nvec + blocks - 1) / blocks + kSpan - 1) / kSpan * kSpan;
+  if (chunk < kSpan) chunk = kSpan;
+  blocks = nvec > 0 ? (nvec + chunk - 1) / chunk : 1;
+}
+
 template <int VEC, bool VALS>
 int launch(const Job& j) {
   void (*kernel)(const int*, const int8_t*, const long long*, long long, int,
@@ -247,18 +263,204 @@ int launch(const Job& j) {
   int per_sm = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) per_sm = 1;
-  const long long nvec = j.n / VEC;
-  long long blocks = (nvec + kSpan - 1) / kSpan;
-  const long long cap = (long long)j.num_sms * per_sm;
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  long long chunk = ((nvec + blocks - 1) / blocks + kSpan - 1) / kSpan * kSpan;
-  if (chunk < kSpan) chunk = kSpan;
-  blocks = nvec > 0 ? (nvec + chunk - 1) / chunk : 1;
+  long long blocks, chunk;
+  grid(j.n / VEC, j.num_sms, per_sm, blocks, chunk);
   dense_segment_kernel<VEC, VALS><<<dim3((unsigned)blocks), kThreads, smem, j.stream>>>(
       j.codes, j.sel, j.values, j.n, j.num_codes, chunk, j.row_base, j.counts,
       j.first, j.sums);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// dense_table_sum_count (K8): the table route, 4,096 < num_codes <= 2^20 and
+// every partial an int64 sum. Its plain version,
+// ops/agg_kernels.dense_table_sum_count_plain, is one scatter_reduce_ for
+// the counts, one for the first rows and one a sum over the selected rows;
+// the route took ops/kernels.sorted_group_reduce before it (a stable radix
+// sort of every padded row, two searchsorted over [K], a prefix sum and
+// gathers a sum).
+//
+// Inputs and outputs as K7's, with 0 to S int64 value planes (sums: S rows
+// of num_codes). Bound: memory, 5 B a live row (code and selection byte)
+// and 8 B a sum plane of each selected row, plus the [K] outputs.
+//
+// The tables do not fit in shared memory (3 MB at Parca's 131,072 stacks
+// and one sum, 6 MB at TSBS's 64,000 (host, hour) codes and ten sums), but
+// they fit in the card's 50 MB L2, so the writes are global atomics that
+// resolve there: RED.64 for counts and sums (native on global memory), and
+// atomicMin for first rows. The design, after K7:
+//  1. Contiguous chunks a block and 16-byte streaming loads of the codes
+//     and the selection, codes read only under a selected row, as K7.
+//  2. Runs in registers, as K7: a lane keeps (code, count, first row, a
+//     64-bit sum a plane) and writes it out when its code changes. TSBS's
+//     (host, hour) codes come in runs of 360 rows; Parca's stacks change
+//     nearly every row.
+//  3. Hot codes. Stacks are drawn at Zipf 1.1, so the most frequent takes
+//     some 13% of the rows, and atomics on one address queue in its L2
+//     slice. Before a write-out reaches an atomic, the lanes of the warp
+//     that write the same code combine (__match_any_sync; the counts and
+//     first rows by __reduce_*_sync, the 64-bit sums by four 16-bit limbs,
+//     each exact in 32 bits) and their lowest lane writes the sum.
+//  4. Value planes read under each selected row, by plain loads that keep
+//     the row's 32-byte sector in L1 for the vector's next rows. One pass
+//     reads a row's code and selection once for up to kMaxPlanes sums (TSBS
+//     has ten); past that, further passes add the next planes' sums.
+
+constexpr int kMaxPlanes = 12;
+
+struct Planes {
+  const long long* p[kMaxPlanes];
+};
+
+// The sum of v over the lanes of g, modulo 2^64.
+__device__ __forceinline__ unsigned long long group_sum(unsigned g, unsigned long long v) {
+  unsigned long long s = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const unsigned limb = (unsigned)(v >> (16 * k)) & 0xffffu;
+    s += (unsigned long long)__reduce_add_sync(g, limb) << (16 * k);
+  }
+  return s;
+}
+
+// A lane's run of equal codes, written out into the [K] tables. ``ns`` of
+// the PLANES sums are live; ``counts_too`` is false on the passes past the
+// first kMaxPlanes planes.
+template <int PLANES>
+struct TableRun {
+  unsigned long long* counts;
+  long long* first;
+  unsigned long long* sums;
+  long long row_base;
+  int num_codes;
+  int ns;
+  bool counts_too;
+  unsigned lane;
+  int code = 0;
+  unsigned cnt = 0;
+  int first_row = kInt32Max;
+  unsigned long long acc[PLANES] = {};
+
+  // Warp-collective (every lane of the warp calls it): the lanes with
+  // `need` write their runs out, combined by code.
+  __device__ __forceinline__ void write(bool need) {
+    const unsigned writers = __ballot_sync(0xffffffffu, need);
+    if (!need) return;
+    const unsigned g = __match_any_sync(writers, code);
+    const bool alone = g == (1u << lane);
+    const bool leader = (unsigned)(__ffs(g) - 1) == lane;
+    if (counts_too) {
+      const unsigned c = alone ? cnt : __reduce_add_sync(g, cnt);
+      const int f = alone ? first_row : __reduce_min_sync(g, first_row);
+      if (leader) {
+        atomicAdd(counts + code, (unsigned long long)c);
+        atomicMin(first + code, row_base + f);
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < PLANES; ++p) {
+      if (p < ns) {
+        const unsigned long long s = alone ? acc[p] : group_sum(g, acc[p]);
+        if (leader) atomicAdd(sums + (long long)p * num_codes + code, s);
+        acc[p] = 0;
+      }
+    }
+    cnt = 0;
+  }
+
+  // One row (`take`: selected, code in range), in the lane's increasing
+  // row order; warp-collective.
+  __device__ __forceinline__ void step(bool take, int c, long long row, const Planes& planes) {
+    write(take && cnt != 0 && c != code);
+    if (!take) return;
+    if (cnt == 0) {
+      code = c;
+      first_row = (int)row;
+    }
+    cnt += 1;
+#pragma unroll
+    for (int p = 0; p < PLANES; ++p) {
+      if (p < ns) acc[p] += (unsigned long long)__ldg(planes.p[p] + row);
+    }
+  }
+};
+
+template <int VEC, int PLANES>
+__global__ void __launch_bounds__(kThreads) dense_table_kernel(
+    const int* __restrict__ codes, const int8_t* __restrict__ sel, const Planes planes,
+    int ns, bool counts_too, long long n, int num_codes, long long chunk,
+    long long row_base, unsigned long long* __restrict__ counts,
+    long long* __restrict__ first, unsigned long long* __restrict__ sums) {
+  TableRun<PLANES> r;
+  r.counts = counts;
+  r.first = first;
+  r.sums = sums;
+  r.row_base = row_base;
+  r.num_codes = num_codes;
+  r.ns = ns;
+  r.counts_too = counts_too;
+  r.lane = threadIdx.x & 31u;
+
+  const long long nvec = n / VEC;
+  const long long from = (long long)blockIdx.x * chunk;
+  const long long to = from + chunk < nvec ? from + chunk : nvec;
+  for (long long q0 = from; q0 < to; q0 += kSpan) {
+    unsigned m[kUnroll];
+    int c[kUnroll][VEC];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long q = q0 + u * kThreads + threadIdx.x;
+      m[u] = q < to ? sel_mask<VEC>(sel, q) : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) c[u][j] = 0;
+      if (m[u]) load_codes<VEC>(codes, q0 + u * kThreads + threadIdx.x, c[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long row0 = (q0 + u * kThreads + threadIdx.x) * VEC;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const bool take = ((m[u] >> j) & 1u) && (unsigned)c[u][j] < (unsigned)num_codes;
+        r.step(take, c[u][j], row0 + j, planes);
+      }
+    }
+  }
+  if (VEC > 1 && blockIdx.x == gridDim.x - 1) {
+    // the n % VEC rows past the whole vectors, a row a lane
+    const long long row = nvec * VEC + threadIdx.x;
+    const int c = row < n && sel[row] != 0 ? codes[row] : -1;
+    r.step((unsigned)c < (unsigned)num_codes, c, row, planes);
+  }
+  r.write(r.cnt != 0);
+}
+
+struct TableJob {
+  const int* codes;
+  const int8_t* sel;
+  long long n;
+  long long row_base;
+  int num_codes;
+  unsigned long long* counts;
+  long long* first;
+  int num_sms;
+  cudaStream_t stream;
+};
+
+template <int VEC, int PLANES>
+int launch_table(const TableJob& j, const Planes& planes, int ns, bool counts_too,
+                 unsigned long long* sums) {
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, dense_table_kernel<VEC, PLANES>, kThreads, 0);
+  if (e != cudaSuccess) return (int)e;
+  long long blocks, chunk;
+  grid(j.n / VEC, j.num_sms, per_sm, blocks, chunk);
+  dense_table_kernel<VEC, PLANES><<<dim3((unsigned)blocks), kThreads, 0, j.stream>>>(
+      j.codes, j.sel, planes, ns, counts_too, j.n, j.num_codes, chunk, j.row_base,
+      j.counts, j.first, sums);
   return (int)cudaGetLastError();
 }
 
@@ -284,4 +486,40 @@ extern "C" int fdb_dense_segment_sum_count(
     return vec ? launch<4, false>(j) : launch<1, false>(j);
   }
   return vec ? launch<4, true>(j) : launch<1, true>(j);
+}
+
+// Counts, first selected rows (+ row_base) and num_values sums per code over
+// the first n rows, for any num_codes >= 1 (tables in device memory).
+// values: a host array of num_values device pointers to int64 planes; sums:
+// num_values rows of num_codes. The caller fills counts and sums with 0 and
+// first with INT64_MAX before the launch. The first pass takes the counts,
+// the first rows and up to kMaxPlanes sums; each further pass the next
+// kMaxPlanes sums. 16-byte code vectors where the codes are 16-byte aligned
+// and the selection 4-byte aligned, scalar loads otherwise.
+extern "C" int fdb_dense_table_sum_count(
+    const void* codes, const void* sel, const void* const* values, int num_values,
+    long long n, long long row_base, int num_codes, void* counts, void* first,
+    void* sums, int num_sms, void* stream) {
+  if (num_codes < 1 || num_values < 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  const TableJob j = {(const int*)codes, (const int8_t*)sel, n, row_base, num_codes,
+                      (unsigned long long*)counts, (long long*)first, num_sms,
+                      (cudaStream_t)stream};
+  const bool vec = aligned(codes, 16) && aligned(sel, 4);
+  int p0 = 0;
+  do {
+    const int ns = num_values - p0 < kMaxPlanes ? num_values - p0 : kMaxPlanes;
+    Planes planes = {};
+    for (int p = 0; p < ns; ++p) planes.p[p] = (const long long*)values[p0 + p];
+    unsigned long long* s = (unsigned long long*)sums + (long long)p0 * num_codes;
+    const bool counts_too = p0 == 0;
+    const int e =
+        ns <= 1 ? (vec ? launch_table<4, 1>(j, planes, ns, counts_too, s)
+                       : launch_table<1, 1>(j, planes, ns, counts_too, s))
+                : (vec ? launch_table<4, kMaxPlanes>(j, planes, ns, counts_too, s)
+                       : launch_table<1, kMaxPlanes>(j, planes, ns, counts_too, s));
+    if (e != 0) return e;
+    p0 += kMaxPlanes;
+  } while (p0 < num_values);
+  return 0;
 }

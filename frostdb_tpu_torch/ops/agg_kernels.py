@@ -3,8 +3,8 @@ wrappers, plain PyTorch versions and launch counters.
 
 The counterpart of ``frostdb_tpu/ops/pallas_agg.py``. Sources:
 ``csrc/agg.cu`` (the aggregation kernels), ``csrc/compact.cu`` (block
-compaction) and ``csrc/dense.cu`` (the dense tier's segment reduction),
-each built for ``sm_90a`` with its own ``nvcc`` (all started
+compaction) and ``csrc/dense.cu`` (the dense tier's segment and table
+reductions), each built for ``sm_90a`` with its own ``nvcc`` (all started
 together) into a shared library with a plain C interface at first use
 (under the checkout's ``build/kernels/``, keyed by a hash of the source and
 flags), and loaded with ``ctypes``. Importing this module builds and loads
@@ -19,6 +19,7 @@ nothing.
 | ``filter_group_sum_count``    | ``pallas_filter_group_sum_count``      |
 | ``block_compact``             | ``pallas_block_compact``               |
 | ``dense_segment_sum_count``   | none (XLA's ``segment_sum``)           |
+| ``dense_table_sum_count``     | none (XLA's sort and prefix sums)      |
 
 Bound on the card: memory bandwidth. The sum/count kernels read one
 predicate plane per clause (4 B/row, plus 1 B/row for the int8 base plane)
@@ -27,9 +28,10 @@ the count-only pass); min/max reads the selection (4 B/row) and the code
 and value of each selected row; block compaction reads the selection (4
 B/row) and writes ``n_blocks x (1 + capb)`` int32; the dense segment
 reduction reads the code, the selection byte and the int64 value of each
-live row (13 B/row). Their arithmetic is a
-handful of integer ops per row, far below the card's rate, so the bound is
-bytes / 3.35 TB/s. The sum/count and min/max kernels are one template:
+live row (13 B/row), the table reduction the code and selection byte of
+each live row and 8 B a sum plane of each selected row. Their arithmetic is
+a handful of integer ops per row, far below the card's rate, so the bound
+is bytes / 3.35 TB/s. The sum/count and min/max kernels are one template:
 each plane is read once in 16-byte vectors, the predicate evaluated in
 registers (no selection plane is written), runs of equal codes kept in
 registers and written out with 32-bit shared atomics into per-code tables
@@ -85,6 +87,7 @@ LAUNCHES: dict[str, int] = {
     "filter_group_sum_count": 0,
     "block_compact": 0,
     "dense_segment_sum_count": 0,
+    "dense_table_sum_count": 0,
 }
 TEMPLATE_LAUNCHES: dict[str, int] = {}
 _launch_lock = threading.Lock()
@@ -218,12 +221,17 @@ def _load() -> types.SimpleNamespace:
                 [p] * 3 + [ll, ll, i] + [p] * 3 + [i, p]
             )
             dense.fdb_dense_segment_sum_count.restype = i
+            dense.fdb_dense_table_sum_count.argtypes = (
+                [p] * 3 + [i, ll, ll, i] + [p] * 3 + [i, p]
+            )
+            dense.fdb_dense_table_sum_count.restype = i
             _lib = types.SimpleNamespace(
                 fdb_group_sum_count=agg.fdb_group_sum_count,
                 fdb_group_min_max=agg.fdb_group_min_max,
                 fdb_filter_group_sum_count=agg.fdb_filter_group_sum_count,
                 fdb_block_compact=compact.fdb_block_compact,
                 fdb_dense_segment_sum_count=dense.fdb_dense_segment_sum_count,
+                fdb_dense_table_sum_count=dense.fdb_dense_table_sum_count,
             )
     return _lib
 
@@ -389,6 +397,28 @@ def dense_segment_sum_count_plain(codes, sel, values, n, row_base, num_codes):
     else:
         sums = K.dense_group_reduce(codes, values, s, num_codes, K.AGG_SUM)
     return counts, first, sums
+
+
+def dense_table_sum_count_plain(codes, sel, values, n, row_base, num_codes):
+    """The dense tier's table reduction in plain PyTorch: over the first
+    ``n`` rows, the selected rows with a code in [0, num_codes), then one
+    ``scatter_reduce_`` each for the counts, the first rows (``row_base``
+    plus the index) and every sum plane."""
+    n = int(n)
+    c = codes[:n].to(torch.int64)
+    keep = sel[:n] & (c >= 0) & (c < num_codes)
+    at = c[keep]
+
+    def table(fill, src, reduce):
+        t = torch.full((num_codes,), fill, dtype=torch.int64, device=codes.device)
+        return t.scatter_reduce_(0, at, src, reduce)
+
+    rows = torch.arange(n, device=codes.device)[keep] + int(row_base)
+    return (
+        table(0, torch.ones_like(at), "sum"),
+        table(_I64_MAX, rows, "amin"),
+        tuple(table(0, v[:n][keep], "sum") for v in values),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -677,4 +707,49 @@ def dense_segment_sum_count(codes, sel, values, n: int, row_base: int, num_codes
             f"dense_segment_sum_count kernel launch failed: cuda error {err}"
         )
     count_launch("dense_segment_sum_count")
+    return counts, first, sums
+
+
+def dense_table_sum_count(codes, sel, values, n: int, row_base: int, num_codes: int):
+    """Exact (counts[K], first[K], sums) int64 over the first ``n`` rows
+    where the bool ``sel`` holds, as ``dense_segment_sum_count`` gives them,
+    for any K >= 1 and zero or more sum planes: ``values`` is a sequence of
+    int64 planes, ``sums`` a tuple of one [K] table each (rows of one
+    tensor). Selected rows whose code lies outside [0, num_codes) add
+    nothing. One pass over the codes a call adds up to 12 planes
+    (csrc/dense.cu's kMaxPlanes); more take further passes."""
+    values = tuple(values)
+    _check_planes(
+        [("codes", codes, torch.int32), ("sel", sel, torch.bool)]
+        + [(f"values[{i}]", v, torch.int64) for i, v in enumerate(values)]
+    )
+    if codes.dim() != 1:
+        raise ValueError("dense_table_sum_count takes flat planes")
+    num_codes = int(num_codes)
+    if not 1 <= num_codes <= _I32_MAX:
+        raise ValueError(f"num_codes must be in [1, {_I32_MAX}], got {num_codes}")
+    n = int(n)
+    if not 0 <= n <= codes.numel():
+        raise ValueError(f"n must be in [0, {codes.numel()}], got {n}")
+    if codes.device.type == "cpu":
+        return dense_table_sum_count_plain(codes, sel, values, n, row_base, num_codes)
+    dev = codes.device
+    out = torch.zeros((2 + len(values), num_codes), dtype=torch.int64, device=dev)
+    out[1].fill_(_I64_MAX)
+    counts, first, sums = out[0], out[1], tuple(out[2:])
+    if n == 0:
+        return counts, first, sums
+    lib = _load()
+    planes = (ctypes.c_void_p * max(len(values), 1))(*[v.data_ptr() for v in values])
+    with torch.cuda.device(dev):
+        num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        err = lib.fdb_dense_table_sum_count(
+            codes.data_ptr(), sel.data_ptr(), planes, len(values),
+            n, int(row_base), num_codes,
+            counts.data_ptr(), first.data_ptr(), out[2:].data_ptr() if values else 0,
+            num_sms, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"dense_table_sum_count kernel launch failed: cuda error {err}")
+    count_launch("dense_table_sum_count")
     return counts, first, sums

@@ -21,22 +21,24 @@ float64 min/max reduce the monotone int64 ordering key ``bits ^ ((bits >>
 63) & 0x7FF..F)``. Every stage reads the one slot list, and one host
 decoder (``_decode``) turns the slot rows back into result columns.
 
-The route is chosen once per query from the code count K of the group
-remap: the segment route up to 4096 codes (``dense_segment_sum_count``,
-the card's one-pass kernel, and ``kernels.dense_group_reduce``), the
-sorted route up to 2^20 (``kernels.sorted_group_reduce``: one sort and
-prefix sums), and the shuffle route up to 2^27: a sparse sort-reduce of
-each part's selected rows into (code, count, first, partials) pairs,
-scattered into [K] tables carried across parts. Past that the generic
-engine serves.
+The route is chosen once per query (``dense_route``) from the code count K
+of the group remap and the slots' reductions: the segment route up to 4096
+codes (``dense_segment_sum_count``, the card's one-pass kernel, and
+``kernels.dense_group_reduce``); up to 2^20 the table route where every
+slot is a sum (``dense_table_sum_count``, one pass into [K] tables in
+device memory) and the sorted route otherwise
+(``kernels.sorted_group_reduce``: one sort and prefix sums); and the
+shuffle route up to 2^27: a sparse sort-reduce of each part's selected
+rows into (code, count, first, partials) pairs, scattered into [K] tables
+carried across parts. Past that the generic engine serves.
 
 Results are identical to the generic engine's, group emission order
 included: each part reduces the exact first selected row per code, parts
 accumulate the minimum stream position (a part's rows start at the sum of
 the live rows of the parts before it; padding rows never select), and
 groups emit in that first-occurrence order (or key order under
-ordered_aggregations). On the segment and sorted routes that order is
-sorted on the device and every [K] partial gathered into it before the
+ordered_aggregations). On the segment, table and sorted routes that order
+is sorted on the device and every [K] partial gathered into it before the
 query's one copy, so the host epilogue only slices.
 
 ``DenseLocalAggregate`` is the engine's ``dense`` tier, between
@@ -83,8 +85,9 @@ _BIG = 2**62
 _I64_MAX = 2**63 - 1
 _I64_MIN = -(2**63)
 
-# Past this many codes a part reduces via sort + prefix sums
-# (kernels.sorted_group_reduce) instead of segment reductions.
+# Past this many codes a part reduces into [K] tables in device memory
+# (the table route) or via sort + prefix sums (the sorted route) instead of
+# segment reductions.
 _SORTED_THRESHOLD = 4096
 
 # Shuffle-route ceiling: up to 2^27 combined codes aggregate through the
@@ -213,6 +216,25 @@ def _unpack_inputs(xs, gshape, clause_sigs, slots, shard: int = 0):
     return gcodes, sel, rows, vlist
 
 
+def dense_route(num_codes: int, slots, max_codes: int) -> str:
+    """The dense tier's route for a query of ``num_codes`` combined codes
+    and these partial slots: "segment" up to ``_SORTED_THRESHOLD`` codes;
+    up to ``max_codes``, "table" where every slot is a sum (counts come
+    with every route) and "sorted" otherwise; past it "shuffle"."""
+    if num_codes > max_codes:
+        return "shuffle"
+    if num_codes <= _SORTED_THRESHOLD:
+        return "segment"
+    return "table" if all(slot.op == K.AGG_SUM for slot in slots) else "sorted"
+
+
+def _live_rows(n, shard: int, m: int) -> tuple:
+    """(row_base, live): the first part row of shard ``shard`` of ``m``
+    rows, and how many of its rows lie below the part's ``n`` live rows."""
+    row_base = shard * m
+    return row_base, min(max(int(n) - row_base, 0), m)
+
+
 def _segment_reduce(n, shard: int, c32, sel, vlist, slots, num_codes: int):
     """One shard's segment-route reduction: (counts, first, partials). The
     counts, the first rows and the first sum come from one
@@ -221,9 +243,7 @@ def _segment_reduce(n, shard: int, c32, sel, vlist, slots, num_codes: int):
     ``kernels.dense_group_reduce``, which reduces full-range int64 keys
     exactly and leaves an empty group at the int64 extreme, an fmm slot's
     identity."""
-    m = c32.shape[0]
-    row_base = shard * m
-    live = min(max(int(n) - row_base, 0), m)
+    row_base, live = _live_rows(n, shard, c32.shape[0])
     c32 = c32.to(torch.int32).contiguous()
     sums = [i for i, slot in enumerate(slots) if slot.op == K.AGG_SUM]
     partials = [None] * len(slots)
@@ -241,6 +261,18 @@ def _segment_reduce(n, shard: int, c32, sel, vlist, slots, num_codes: int):
         if slot.op != K.AGG_SUM:
             partials[i] = K.dense_group_reduce(c32, vlist[i], sel, num_codes, slot.op)
     return counts, first, partials
+
+
+def _table_reduce(n, shard: int, c32, sel, vlist, num_codes: int):
+    """One shard's table-route reduction (every slot a sum): (counts,
+    first, partials) from one ``dense_table_sum_count`` call over the
+    shard's live rows."""
+    row_base, live = _live_rows(n, shard, c32.shape[0])
+    counts, first, sums = AK.dense_table_sum_count(
+        c32.to(torch.int32).contiguous(), sel, tuple(v.contiguous() for v in vlist),
+        live, row_base, num_codes,
+    )
+    return counts, first, list(sums)
 
 
 def _sparse_pairs(gcodes, sel, rows, vlist, slots, num_codes: int) -> list:
@@ -467,11 +499,13 @@ class DenseLocalAggregate(CompiledFilterAggregate):
 
     def _reduce_part(self, route, sig, args, num_codes: int, shard: int = 0):
         """One shard's (counts, first, partials) of a part as [num_codes]
-        int64 tensors on the segment or the sorted route: here the part's
-        whole reduction."""
+        int64 tensors on the segment, table or sorted route: here the
+        part's whole reduction."""
         gcodes, sel, rows, vlist = self._shard_inputs(sig, args, shard)
         if route == "segment":
             return _segment_reduce(args[0], shard, gcodes, sel, vlist, self._slots, num_codes)
+        if route == "table":
+            return _table_reduce(args[0], shard, gcodes, sel, vlist, num_codes)
         # One sort + prefix sums. Its min/max take a segment's first or
         # last sorted element, so fmm keys reduce exactly, but an empty
         # group holds +-2^62, which such keys can pass: it takes the
@@ -498,18 +532,18 @@ class DenseLocalAggregate(CompiledFilterAggregate):
                     raise NotCompilable("min/max values near int64 sentinel")
         self._slots = partial_slots(self.aggs, self.value_plans)
         self._gplan, num_codes = self._group_remap(parts, max_codes=SHUFFLE_MAX_CODES)
-        if num_codes > self.MAX_CODES:
+        route = dense_route(num_codes, self._slots, self.MAX_CODES)
+        if route == "shuffle":
             # Past the [K] partials' ceiling: sparse pairs into tables of
             # O(K / shards) per shard (the role of aggregate.go:430-470's
             # overflow splitting, distributed).
             return self._execute_shuffle(parts, num_codes)
-        route = "sorted" if num_codes > _SORTED_THRESHOLD else "segment"
         return self._execute_dense(parts, num_codes, route)
 
     def _execute_dense(self, parts, num_codes: int, route: str):
-        """The segment or sorted route: each part's [K] partials folded
-        across parts on the device, the groups' emission order sorted
-        there, and the rows copied once in that order."""
+        """The segment, table or sorted route: each part's [K] partials
+        folded across parts on the device, the groups' emission order
+        sorted there, and the rows copied once in that order."""
         result_names = [spec.result_name for spec in self.aggs]
         if not parts:
             empty = np.asarray([], dtype=np.int64)

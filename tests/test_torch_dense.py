@@ -1,6 +1,7 @@
 """The port's dense tier (frostdb_tpu_torch/parallel/mesh_exec.py) against
 the JAX package's: group-bys past the compiled tier's 2048 codes, on the
-segment route (K <= 4096), the sorted route (K > 4096) and the shuffle
+segment route (K <= 4096), the table route (K > 4096, sums and counts
+only), the sorted route (K > 4096, any other aggregation) and the shuffle
 route (K > 2^20), with the same rows in the same order, the same serving
 tier and the same decline reasons.
 
@@ -8,10 +9,12 @@ Tables are made by the JAX package's own test helpers and carried
 across with ``frostdb_tpu_torch.interop.table_from_numpy``; each query runs
 through both engines with the compiled tiers on. Also here: the two dense
 reductions of ``ops/kernels.py`` against the reference's functions, the
-shuffle route under a memory limit, the compiled tiers over a table with a
-data source (the ``collect_parts`` repair), and the port's fix of the
-reference's double release of the shuffle route's memory reservation
-(marked ``divergence``).
+one-pass reductions' plain versions against the reductions they replace,
+the route choice at its boundaries, the shuffle route under a memory
+limit, the compiled tiers over a table with a data source (the
+``collect_parts`` repair), and the port's fix of the reference's double
+release of the shuffle route's memory reservation (marked
+``divergence``).
 """
 
 import functools
@@ -394,13 +397,16 @@ def test_make_mesh_is_one_device_only():
 # it; these cases hold that order (first selected occurrence in the part
 # stream, or key order under ordered_aggregations) to the generic DAG's.
 
-# (route, group columns): the distinct values of each group column, so the
-# code space lands on the segment route (2,049-4,096) or the sorted one.
+# (band, group columns): the distinct values of each group column, so the
+# code space lands in the segment route's band (2,049-4,096 codes) or past
+# it ("sorted": 4,097-2^20), where the aggregations of _TABLE_AGGS take the
+# table route and the others the sorted route.
 _ORDER_SPACES = {
     ("segment", 1): (3000,),
     ("sorted", 1): (6000,),
     ("segment", 2): (60, 60),
     ("sorted", 2): (100, 70),
+    ("sorted", 3): (17, 16, 16),
 }
 
 # One aggregation a query: under ordered_aggregations the planner picks
@@ -414,6 +420,9 @@ _ORDER_AGGS = {
     "and": lambda E: [E.AndAgg(E.Col("b"))],
     "float_sum": lambda E: [E.Sum(E.Col("f"))],
 }
+# Every partial of these is an int64 sum (a count has none; an exact float
+# sum has four digit-plane sums).
+_TABLE_AGGS = {"sum", "count", "float_sum"}
 
 
 def _order_schema(n_groups):
@@ -471,10 +480,12 @@ def _order_db(space):
 @pytest.mark.parametrize("space", sorted(_ORDER_SPACES), ids=lambda s: f"{s[0]}-{s[1]}col")
 def test_dense_emission_order_matches_generic(space, aggs, selection, ordered):
     """The dense tier's rows, in their order, equal the generic DAG's on
-    both routes, one and two group columns, every aggregation the tier
-    reduces, with a selection that leaves most codes empty (300 of 4,500
-    to 10,500 rows) or none, first-occurrence or key order."""
+    the segment, table and sorted routes, one to three group columns,
+    every aggregation the tier reduces, with a selection that leaves most
+    codes empty (300 of 4,500 to 10,500 rows) or none, first-occurrence or
+    key order."""
     db = _order_db(space)
+    route = "table" if space[0] == "sorted" and aggs in _TABLE_AGGS else space[0]
     groups = lambda E: [E.Col(f"g{i}") for i in range(space[1])]
     filt = (lambda E: E.Col("ts").lt(300)) if selection == "sparse" else None
     make_q = agg(_ORDER_AGGS[aggs], groups, filt)
@@ -490,7 +501,7 @@ def test_dense_emission_order_matches_generic(space, aggs, selection, ordered):
             assert eng.last_serving_path == "dense", eng.last_fallback_reasons
             (dense,) = [c for c in tracer.roots[0].children if c.name == "dense/execute"]
             (parts,) = [c for c in dense.children if c.name == "dense/parts"]
-            assert parts.attributes["route"] == space[0]
+            assert parts.attributes["route"] == route
     assert got[True] == got[False]
     n_codes = int(np.prod(_ORDER_SPACES[space]))
     if selection == "full":
@@ -642,6 +653,102 @@ def test_dense_segment_sum_count_plain_matches_dense_group_reduce(k, run, select
         np.testing.assert_array_equal(only[0].numpy(), counts)
         np.testing.assert_array_equal(only[1].numpy(), first)
         assert not only[2].any()
+
+
+@pytest.mark.parametrize("planes", [0, 1, 12])
+@pytest.mark.parametrize("selection", ["none", "all", "hot"])
+@pytest.mark.parametrize("k", [4097, 131072, 1 << 20])
+def test_dense_table_sum_count_plain_matches_sorted_group_reduce(k, selection, planes):
+    """The table route's one-pass reduction (plain version) against
+    ``kernels.sorted_group_reduce``, the route's reduction before it, bit
+    for bit: counts, first rows and every sum, over no selected row, every
+    row, or every row with one hot code on half of them; int64 values near
+    +-2^63 whose sums wrap; ``row_base`` 0 and past 2^31; codes outside [0,
+    K) (selected, adding nothing); selected rows past the live count ``n``
+    ignored; 0, 1 and 12 sum planes (one kernel pass)."""
+    from frostdb_tpu_torch.ops import agg_kernels as AK
+
+    rng = np.random.default_rng([k, len(selection), planes])
+    codes = rng.integers(0, k, _SEG_PAD).astype(np.int32)
+    if selection == "hot":
+        codes[rng.random(_SEG_PAD) < 0.5] = k - 1
+    codes[::97] = -1
+    codes[::101] = k
+    sel = np.full(_SEG_PAD, selection != "none")
+    vals = []
+    for _p in range(planes):
+        v = rng.integers(2**62, 2**63 - 1, _SEG_PAD, dtype=np.int64)
+        v[rng.random(_SEG_PAD) < 0.5] *= -1
+        vals.append(v)
+    live = np.arange(_SEG_PAD) < _SEG_LIVE
+    c, s = torch.from_numpy(codes), torch.from_numpy(sel)
+    tv = [torch.from_numpy(v) for v in vals]
+    for row_base in (0, 3 * 2**31 + 7):
+        counts, first, sums = AK.dense_table_sum_count_plain(c, s, tv, _SEG_LIVE, row_base, k)
+        rows = torch.arange(_SEG_PAD, dtype=torch.int64) + row_base
+        w_counts, w_first, w_sums = PK.sorted_group_reduce(
+            c, torch.from_numpy(sel & live), rows, tuple(tv), k, (PK.AGG_SUM,) * planes)
+        assert all(t.dtype == torch.int64 and t.shape == (k,) for t in (counts, first, *sums))
+        assert len(sums) == planes
+        np.testing.assert_array_equal(counts.numpy(), w_counts.numpy())
+        has = counts.numpy() > 0
+        np.testing.assert_array_equal(first.numpy()[has], w_first.numpy()[has])
+        assert (first.numpy()[~has] == np.iinfo(np.int64).max).all()
+        for g, w in zip(sums, w_sums):
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+        in_range = (codes >= 0) & (codes < k)
+        assert counts.sum() == (sel & live & in_range).sum()
+        if selection == "hot":
+            assert counts[k - 1] > _SEG_LIVE // 3
+
+
+_SUM, _MIN = ME.Slot(0, 2, 0, PK.AGG_SUM, 0), ME.Slot(1, 2, 0, PK.AGG_MIN, 2**62)
+
+
+@pytest.mark.parametrize("k,slots,route", [
+    (4096, (_SUM,), "segment"),
+    (4097, (_SUM,), "table"),
+    (4097, (), "table"),
+    (1 << 20, (_SUM, _SUM), "table"),
+    ((1 << 20) + 1, (_SUM,), "shuffle"),
+    (4096, (_SUM, _MIN), "segment"),
+    (4097, (_SUM, _MIN), "sorted"),
+    (6000, (_MIN,), "sorted"),
+    (1 << 20, (_MIN,), "sorted"),
+    ((1 << 20) + 1, (_MIN,), "shuffle"),
+], ids=lambda x: "-".join(s.op for s in x) or "count" if isinstance(x, tuple) else str(x))
+def test_dense_route_boundaries(k, slots, route):
+    """The route at the segment route's threshold (4,096 / 4,097 codes) and
+    at the dense tier's ceiling (2^20 / 2^20 + 1): past 4,096 codes the
+    table route where every partial slot is a sum (a count has none), the
+    sorted route where one is a min or max."""
+    assert ME.dense_route(k, slots, ME.DenseLocalAggregate.MAX_CODES) == route
+
+
+@pytest.mark.parametrize("aggs,route", [
+    ("sum_count", "table"), ("sum_min", "sorted"), ("min", "sorted")])
+def test_routes_past_the_segment_threshold(aggs, route):
+    """About 6,000 codes: sums and counts on the table route, and any query
+    with a min slot on the sorted route, rows equal to the JAX package's."""
+    types = [f"u{i % 6000}" for i in range(12000)]
+    jdb, _t = TC._setup_values(list(range(12000)), types=types, tss=list(range(12000)))
+    pdb = carry(jdb)
+    fns = {
+        "sum_count": lambda E: [E.Sum(E.Col("value")), E.Count(E.Col("value"))],
+        "sum_min": lambda E: [E.Sum(E.Col("value")), E.Min(E.Col("value"))],
+        "min": lambda E: [E.Min(E.Col("value"))],
+    }
+    make_q = agg(fns[aggs], lambda E: [E.Col("example_type")],
+                 lambda E: E.Col("timestamp").gt_eq(100))
+    ref, got = run_both(jdb, make_q, pdb=pdb)
+    assert_same(ref, got, "dense")
+    assert len(got[0]) == 6000
+    tracer = Tracer()
+    peng = PEngine(pdb.table_provider(), exec_options=POptions(tracer=tracer))
+    make_q(peng, PE).execute(lambda b: None)
+    (dense,) = [c for c in tracer.roots[0].children if c.name == "dense/execute"]
+    (parts,) = [c for c in dense.children if c.name == "dense/parts"]
+    assert parts.attributes["route"] == route
 
 
 # ---------------------------------------------------------------------------

@@ -187,6 +187,31 @@ def test_mesh_large_code_space_sorted_reduce():
     assert len(parity(jdb, on_table(q), (8,))) > 4096
 
 
+def test_mesh_table_route_equals_dense_tier():
+    """Sums and counts over about 6,000 codes (past the segment route's
+    4,096): the mesh tier at 1 and 4 shards takes the table route on every
+    shard and gives the dense tier's rows in its order, and the JAX
+    package's."""
+    from frostdb_tpu_torch.tracing import Tracer
+
+    _s, jdb, _t = TME._setup(n_parts=2, rows=9000, n_groups=6000)
+    q = on_table(lambda b: b.filter(E.Col("timestamp").gt(100)).aggregate(
+        [E.Sum(E.Col("value")), E.Count(E.Col("value"))], [E.Col("labels.label1")]))
+    pdb = carry(jdb)
+    dense = run_port(pdb, q)
+    assert dense[1] == "dense"
+    assert len(dense[0]) > 4096
+    for n in (1, 4):
+        tracer = Tracer()
+        got = run_port(pdb, q, mesh=n, tracer=tracer)
+        assert got[1] == "mesh" and got[0] == dense[0], n
+        (root,) = tracer.roots
+        (mesh,) = [c for c in root.children if c.name == "mesh/execute"]
+        (parts,) = [c for c in mesh.children if c.name == "dense/parts"]
+        assert parts.attributes["route"] == "table", n
+    assert parity(jdb, q, (1, 4), pdb=pdb) == dense[0]
+
+
 def test_mesh_engine_falls_back_on_unsupported():
     """A distinct declines on the mesh tier with the reference's reason;
     the same tier serves it on both packages."""

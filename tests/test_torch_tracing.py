@@ -572,35 +572,42 @@ def test_shuffle_route_orders_on_the_host(monkeypatch):
     assert len(rows["shuffle"]) == 3000
 
 
-@pytest.mark.parametrize("route", ["segment", "sorted"])
+@pytest.mark.parametrize("route", ["segment", "sorted", "table"])
 def test_dense_segment_fused_counts_each_segment_route_part(route, monkeypatch):
     """The ``dense/parts`` span names the route and counts the parts: the
     tier table's two parts on the segment route (3,000 stacks), whose
     counts, first rows and sums take one ``dense_segment_sum_count`` call
-    a part (K7 on the card), or on the sorted route, which calls it for
-    none, with the same rows."""
+    a part (K7 on the card); past the segment route's threshold, on the
+    table route, one ``dense_table_sum_count`` call a part (K8 on the
+    card) for the sum, or, with a min beside it, on the sorted route,
+    which calls neither; the same rows on every route."""
     from frostdb_tpu_torch.parallel import mesh_exec as ME
 
-    if route == "sorted":
-        # 3,000 stacks past the segment route's threshold: the sorted route
+    if route != "segment":
+        # 3,000 stacks past the segment route's threshold
         monkeypatch.setattr(ME, "_SORTED_THRESHOLD", 2048)
-    calls = []
-    one_pass = ME.AK.dense_segment_sum_count
-    monkeypatch.setattr(ME.AK, "dense_segment_sum_count",
-                        lambda *a: calls.append(a[-1]) or one_pass(*a))
+    calls = {"dense_segment_sum_count": [], "dense_table_sum_count": []}
+    for name, seen in calls.items():
+        one_pass = getattr(ME.AK, name)
+        monkeypatch.setattr(ME.AK, name,
+                            lambda *a, f=one_pass, seen=seen: seen.append(a[-1]) or f(*a))
     tracer = Tracer()
     db = ColumnStore(device="cpu").db("tr")
     tier_table(db)
     eng = PEngine(db.table_provider(), POptions(tracer=tracer))
     out = []
-    TIER_QUERIES["dense"](eng).execute(out.append)
+    aggs = [PE.Sum(PE.Col("value"))] + ([PE.Min(PE.Col("value"))] if route == "sorted" else [])
+    eng.scan_table("t").aggregate(aggs, [PE.Col("stacktrace")]).execute(out.append)
     assert eng.last_serving_path == "dense"
     (root,) = tracer.roots
     (dense,) = [c for c in root.children if c.name == "dense/execute"]
     parts = next(c for c in dense.children if c.name == "dense/parts")
     assert (parts.attributes["route"], parts.attributes["parts"]) == (route, 2)
-    assert calls == ([3000, 3000] if route == "segment" else [])
-    assert len(FZ.rows(out)) == 3000
+    assert calls == {
+        "dense_segment_sum_count": [3000, 3000] if route == "segment" else [],
+        "dense_table_sum_count": [3000, 3000] if route == "table" else [],
+    }
+    assert [r[1] for r in FZ.rows(out)] == [("sum(value)", 1)] * 3000
 
 
 def test_reference_view_keeps_an_unlisted_span():
