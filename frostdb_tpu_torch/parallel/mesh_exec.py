@@ -74,7 +74,7 @@ from ..device import ShardedTensor
 from ..ops import agg_kernels as AK
 from ..ops import kernels as K
 from ..query import expr as E
-from ..tracing import annotate as _annotate, span as _span
+from ..tracing import annotate as _annotate, count as _count, span as _span
 from . import collectives as C
 from .shuffle import bucket_slots
 
@@ -284,6 +284,7 @@ def _sparse_pairs(gcodes, sel, rows, vlist, slots, num_codes: int) -> list:
     fmm ordering keys reduce like any int64, since no identity competes
     inside a pair."""
     n_sel = int(sel.sum())
+    _annotate(selected=n_sel)
     if n_sel == 0:
         empty = torch.zeros(0, dtype=torch.int64, device=gcodes.device)
         return [empty] * (3 + len(vlist))
@@ -608,8 +609,11 @@ class DenseLocalAggregate(CompiledFilterAggregate):
                 )
                 # The tables accumulate ACROSS parts, so each part's rows
                 # shift by its offset in the concatenated stream.
-                cols = _sparse_pairs(gcodes, sel, rows + offset, vlist, self._slots, num_codes)
-                _scatter_pairs(tabs, cols[0], cols, self._slots)
+                with _span("dense/pairs"):
+                    cols = _sparse_pairs(gcodes, sel, rows + offset, vlist, self._slots, num_codes)
+                    _scatter_pairs(tabs, cols[0], cols, self._slots)
+                    _annotate(pairs=cols[0].shape[0])
+                _count("shuffle_pairs_total", "pairs the shuffle route scattered", cols[0].shape[0])
                 offset += p.batch.num_rows
         blob = _copy_to_host(torch.cat(tabs))
         return self._finish(blob, self._shuffle_epilogue, blob.reshape(-1, num_codes))
@@ -687,9 +691,11 @@ class DenseLocalAggregate(CompiledFilterAggregate):
         # tables: [2 + slots, num_codes] in code order; the emission order
         # is sorted here, on the host.
         counts, first = tables[0], tables[1]
-        present = np.nonzero(counts > 0)[0]
-        order_arr = present[np.argsort(first[present], kind="stable")]
-        order_arr = self._ordered_sort(order_arr.astype(np.int64))
+        with _span("shuffle/order"):
+            present = np.nonzero(counts > 0)[0]
+            order_arr = present[np.argsort(first[present], kind="stable")]
+            order_arr = self._ordered_sort(order_arr.astype(np.int64))
+            _annotate(groups=order_arr.shape[0])
         return emit_output(
             self._emitted_group_cols(order_arr),
             order_arr,
@@ -800,9 +806,11 @@ class MeshFilterAggregate(DenseLocalAggregate):
             pairs = []
             for s in C.axis_index(n_shards):
                 gcodes, sel, rows, vlist = self._shard_inputs(sig, args, s)
-                pairs.append(
-                    _sparse_pairs(gcodes, sel, rows + offset, vlist, self._slots, num_codes)
-                )
+                with _span("dense/pairs"):
+                    pairs.append(
+                        _sparse_pairs(gcodes, sel, rows + offset, vlist, self._slots, num_codes)
+                    )
+                    _annotate(pairs=pairs[-1][0].shape[0])
             packs = [bucket_slots(cols[0] % n_shards, n_shards, cap) for cols in pairs]
             over = C.pmax([(pk[3] > cap).any().to(torch.int32) for pk in packs])
             if bool(over[0]):
@@ -826,6 +834,9 @@ class MeshFilterAggregate(DenseLocalAggregate):
                     r_valid[d].reshape(-1), recv[0][d] // n_shards, k_per
                 )
                 _scatter_pairs(tabs[d], at, [col[d] for col in recv], self._slots)
+            # an overflowed exchange above scattered nothing
+            _count("shuffle_pairs_total", "pairs the shuffle route scattered",
+                   sum(cols[0].shape[0] for cols in pairs))
             crossed = sum(
                 int(pk[3].sum() - pk[3][s]) for s, pk in enumerate(packs)
             )

@@ -34,15 +34,16 @@ import torch
 clock_ns = time.time_ns
 
 # Spans only the port emits: each tier's lowering, and the work inside the
-# tiers (cache misses, the group remap, the dense tier's part loop, a fused
-# program's min/max passes, the result's copy and host epilogue,
+# tiers (cache misses, the group remap, the dense tier's part loop and its
+# shuffle route's pairs, a fused program's min/max passes, the result's
+# copy and host epilogue with the shuffle route's host order,
 # compiled_scan's block loop).
 PORT_ONLY_SPANS = (
     "compiled/lower", "compiled_join/lower", "dense/lower",
     "compiled_distinct/lower", "schema_meta/lower", "compiled_scan/lower",
     "mesh/lower", "planes/build", "program/build", "groups/remap",
-    "dense/parts", "compiled/minmax", "result/copy", "result/epilogue",
-    "scan/blocks",
+    "dense/parts", "dense/pairs", "compiled/minmax", "result/copy",
+    "result/epilogue", "shuffle/order", "scan/blocks",
 )
 # The port's tier spans, each under the name the reference's tier opens.
 REFERENCE_TIER_SPAN = {
